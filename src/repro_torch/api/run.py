@@ -45,6 +45,7 @@ def build_engine(experiment: Experiment, device=None) -> SimulationEngine:
             seed=experiment.seed,
             max_steps_per_window=sched.max_steps_per_window,
             use_kernel=experiment.use_kernel,
+            sparse=experiment.sparse,
             kernel_chunk_steps=experiment.kernel_chunk_steps,
             kernel_max_chunks=experiment.kernel_max_chunks,
             stat_blocks=part.blocks if part is not None else 1)

@@ -205,8 +205,12 @@ class Experiment:
     is closed when the run completes.
     record_trajectories: buffer raw per-window samples under schema
     ONLINE too.
+    sparse: the sparse exact step — dependency-graph propensity updates
+    over padded sparse tables, for networks of hundreds of species and
+    reactions and for any reactant coefficient; bitwise identical to
+    the dense step where both run.
 
-    method=TAU_LEAP, sparse, sketch, steering, recovery, host_loop,
+    method=TAU_LEAP, sketch, steering, recovery, host_loop,
     window_block > 1, pipeline_depth != 1 and a multi-shard
     partitioning are not ported yet and are refused by validate().
     """
@@ -297,7 +301,6 @@ class Experiment:
         unported = [
             (self.method is Method.TAU_LEAP, "method=Method.TAU_LEAP",
              "item 10, tau-leaping"),
-            (self.sparse, "sparse=True", "item 11, sparse engine"),
             (self.sketch is not None, "sketch", "item 12, sketches"),
             (self.steering is not None, "steering", "item 13, steering"),
             (self.partitioning is not None

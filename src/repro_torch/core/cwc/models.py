@@ -12,12 +12,18 @@ copy of `repro/core/cwc/models.py`, with the same `MODELS` entries.
   gene-expression/cargo motif repeated over a ring or torus of coupled
   cells. Hundreds of species/reactions with motif-bounded dependency
   out-degree — the sparse engine's target class (DESIGN.md §3g).
+
+`pentamer_system()` is not a `MODELS` entry but a flat ReactionSystem
+with a reactant coefficient of 5, above the dense path's MAX_COEF: the
+one system the port's tests and `chip_smoke.py` run on the sparse path
+only.
 """
 from __future__ import annotations
 
 from repro_torch.core.cwc.compile import cell_lattice_model, cell_ring_model
 from repro_torch.core.cwc.rules import CWCModel, Rule, TransportRule
 from repro_torch.core.cwc.terms import TOP, comp, term
+from repro_torch.core.reactions import ReactionSystem, make_system
 
 
 def lotka_volterra(n_species: int = 2, k_reproduce: float = 1.0,
@@ -103,6 +109,17 @@ def membrane_transport(k_in: float = 0.1, k_out: float = 0.05,
     return CWCModel(rules=rules, init_fn=init,
                     observables=((TOP, "a"), (L, "a"), (L, "b"), (TOP, "b")),
                     name="membrane-transport")
+
+
+def pentamer_system() -> ReactionSystem:
+    """A monomer fed and decaying, five of which pentamerise: the
+    coefficient-5 reaction the dense path refuses and the sparse path
+    runs (its comb unroll goes to the system's own max coefficient)."""
+    return make_system(
+        ["A", "P"],
+        [({}, {"A": 1}, 30.0), ({"A": 1}, {}, 0.5),
+         ({"A": 5}, {"P": 1}, 1e-4), ({"P": 1}, {}, 0.2)],
+        {"A": 60}, names=["feed", "decay", "pentamerise", "p-decay"])
 
 
 MODELS = {

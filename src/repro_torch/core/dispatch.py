@@ -2,15 +2,18 @@
 the per-window fused strategy of `repro/core/dispatch.py`.
 
 Two bodies, selected by `SimConfig.use_kernel`, both bitwise identical
-per lane:
+per lane, each dense or sparse (`SimConfig.sparse`):
 
   unfused (`make_window_body`): the scheduler's lane groups gathered by
       permutation, each advanced by the masked per-lane loop
-      (`gillespie.make_advance_fn` over `ssa_step`), scattered back;
-  kernel (`FusedDispatch.advance`): the whole pool through the fused
-      CUDA window (`kernels.ops.window_chunk_loop`) — one kernel launch
-      per window. Lane groups would not change a single trajectory, so
-      the kernel path ignores them.
+      (`gillespie.make_advance_fn` over `ssa_step`, or
+      `make_sparse_advance_fn` over `sparse_ssa_step` with its carried
+      propensities), scattered back;
+  kernel (`FusedDispatch.advance`): the whole pool through a fused CUDA
+      window (`kernels.ops.window_chunk_loop` or
+      `sparse_window_chunk_loop`, its tables bound to the rates once) —
+      one kernel launch per window. Lane groups would not change a
+      single trajectory, so the kernel path ignores them.
 
 Both end in the same device-side observable extraction, which is what
 keeps the two paths' records bitwise comparable.
@@ -21,8 +24,17 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.core.gillespie import LaneState, make_advance_fn, ssa_step
-from repro_torch.kernels.ops import window_chunk_loop
+from repro_torch.core.gillespie import (
+    LaneState,
+    make_advance_fn,
+    make_sparse_advance_fn,
+    ssa_step,
+)
+from repro_torch.kernels.ops import (
+    bind_sparse_window,
+    sparse_window_chunk_loop,
+    window_chunk_loop,
+)
 
 
 class WindowResult(NamedTuple):
@@ -85,13 +97,30 @@ class FusedDispatch:
         self.eng = engine
         cfg = engine.cfg
         self._kernel = cfg.use_kernel
+        sp = engine._sparse_tensors
         if self._kernel:
             self._extract_obs = _obs_extractor(engine.obs_idx)
+            self.set_rates(engine._rates_dev)
         else:
             self._body = make_window_body(
                 make_advance_fn(ssa_step, engine._tensors_base[:3],
-                                cfg.max_steps_per_window),
+                                cfg.max_steps_per_window)
+                if sp is None else
+                make_sparse_advance_fn(sp, cfg.max_steps_per_window),
                 engine.scheduler.n_lanes, engine.obs_idx)
+
+    def set_rates(self, rates) -> None:
+        """Bind the kernel path's operands to rates (R,) or (I, R); the
+        engine calls this whenever it installs new rates."""
+        if not self._kernel:
+            return
+        sp = self.eng._sparse_tensors
+        if sp is None:
+            self._loop = window_chunk_loop
+            self._tables = (*self.eng._tensors_base[:3], rates)
+        else:
+            self._loop = sparse_window_chunk_loop
+            self._tables = bind_sparse_window(sp, rates)
 
     def advance(self, horizon) -> WindowResult:
         """horizon: numpy float32 window end."""
@@ -100,10 +129,9 @@ class FusedDispatch:
         if self._kernel:
             cfg = eng.cfg
             old = eng._pool
-            out = window_chunk_loop(old, (*eng._tensors_base[:3],
-                                          eng._rates_dev), horizon,
-                                    chunk_steps=cfg.kernel_chunk_steps,
-                                    max_chunks=cfg.kernel_max_chunks)
+            out = self._loop(old, self._tables, horizon,
+                             chunk_steps=cfg.kernel_chunk_steps,
+                             max_chunks=cfg.kernel_max_chunks)
             eng._pool = out.state
             return WindowResult(self._extract_obs(out.state.x),
                                 out.state.steps - old.steps, out.truncated)

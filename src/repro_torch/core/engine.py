@@ -9,16 +9,18 @@ parameter sweep) under one of the paper's three schemas:
   schema "iii" time-sliced farm + on-line windowed reduction
 
 Each window advances the whole instance pool (core/dispatch.py): with
-`use_kernel=True` through the fused CUDA SSA window, one kernel launch
-per window; otherwise through the unfused group loop over `ssa_step`.
-Both give the same bits. The window's statistics, step counters and
+`use_kernel=True` through a fused CUDA SSA window, one kernel launch
+per window; otherwise through the unfused group loop. `sparse=True`
+switches both to the sparse exact step (dependency-graph propensity
+updates, no S/R cap of the dense kernel, any reactant coefficient). All
+four give the same bits. The window's statistics, step counters and
 the kernel's truncation flag then come to the host in ONE combined
 device-to-host copy, and a `StatsRecord` is emitted.
 
 Not ported yet (each raises in `repro_torch.api` before an engine is
-built): tau-leaping, the sparse encoding, sketches, steering,
-supervision, multi-shard partitioning, supersteps and pipelining, the
-host-loop dispatch strategy, and checkpoints.
+built): tau-leaping, sketches, steering, supervision, multi-shard
+partitioning, supersteps and pipelining, the host-loop dispatch
+strategy, and checkpoints.
 """
 from __future__ import annotations
 
@@ -35,8 +37,12 @@ from repro_torch.core.cwc.compile import compile_model
 from repro_torch.core.cwc.rules import CWCModel
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dispatch import FusedDispatch
-from repro_torch.core.gillespie import init_lanes, system_tensors
-from repro_torch.core.reactions import ReactionSystem
+from repro_torch.core.gillespie import (
+    init_lanes,
+    sparse_system_tensors,
+    system_tensors,
+)
+from repro_torch.core.reactions import ReactionSystem, sparse_tables
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.core.stream import StatsRecord, StatsStream
 
@@ -55,6 +61,7 @@ class SimConfig:
     seed: int = 0
     max_steps_per_window: Optional[int] = None
     use_kernel: bool = False  # the fused CUDA SSA window (kernels/)
+    sparse: bool = False  # the sparse exact step (dependency graph)
     # the kernel path's per-window event budget: chunk_steps * max_chunks
     # events per lane in one launch; a window needing more raises
     # FusedWindowTruncated (never silently truncates)
@@ -119,12 +126,19 @@ class SimulationEngine:
         self.scheduler = Scheduler(
             cfg.n_instances, min(cfg.n_lanes, cfg.n_instances),
             policy=("static_rr" if cfg.schema == "i" else cfg.policy))
-        self._tensors_base = system_tensors(self.system, device=self.device)
+        # the dense comb unroll's MAX_COEF ceiling binds only when the
+        # dense step runs
+        self._tensors_base = system_tensors(self.system, device=self.device,
+                                            require_dense=not cfg.sparse)
+        self._sparse_tensors = (sparse_system_tensors(
+            sparse_tables(self.system), device=self.device)
+            if cfg.sparse else None)
         # shared rates stay (R,) on the device (the kernel keeps them in
         # shared memory); a sweep installs an (I, R) matrix
         self.rates = np.broadcast_to(
             self.system.rates, (cfg.n_instances, self.system.n_reactions))
         self._rates_dev = self._tensors_base[3]
+        self._dispatch: Optional[FusedDispatch] = None
         if rates is not None:
             self.set_rates(rates)
         self._window = 0
@@ -165,6 +179,8 @@ class SimulationEngine:
                              f"{rates.shape}")
         self.rates = rates
         self._rates_dev = torch.as_tensor(rates, device=self.device)
+        if self._dispatch is not None:
+            self._dispatch.set_rates(self._rates_dev)
 
     def set_groups(self, group_ids) -> None:
         """Enable grouped reduction: group_ids (I,) maps each instance

@@ -5,6 +5,8 @@ A `ReactionSystem` is the compile-time residue of a CWC model: every
 flat species vector. The tables are numpy arrays, identical to the
 reference's; the run-time math (`comb_factors`, `propensities`) is
 torch, in the reference's operation order, so its bits match.
+`sparse_tables` derives the dependency graph and sparse stoichiometry
+of the sparse exact path (`sparse=True`).
 
 Propensities follow the paper's combination counting: for a reactant
 with multiplicity c and population n the factor is C(n, c), times the
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from math import comb
 from typing import Optional, Sequence
 
 import numpy as np
@@ -21,7 +24,8 @@ import torch
 
 MAX_REACTANTS = 4  # max distinct species on a rule LHS
 # the dense path unrolls C(n, c) to c <= MAX_COEF and refuses larger
-# multiplicities (`require_dense_capable`)
+# multiplicities (`require_dense_capable`); the sparse path unrolls to
+# the system's own `max_coef` and takes any multiplicity
 MAX_COEF = 4
 
 
@@ -128,8 +132,9 @@ def require_dense_capable(system: ReactionSystem) -> None:
             f"reaction {name!r} has stoichiometric coefficient "
             f"{int(coef[j, m])} > MAX_COEF={MAX_COEF}: the dense path "
             f"unrolls the combination factors C(n, c) to c <= {MAX_COEF} "
-            "and would evaluate silently wrong propensities; the sparse "
-            "encoding that lifts this ceiling is not ported yet")
+            "and would evaluate silently wrong propensities; run this "
+            "system with sparse=True (its unroll goes to the system's "
+            "own max coefficient)")
 
 
 def comb_factors(pops, coef, max_c: int = MAX_COEF):
@@ -163,3 +168,97 @@ def propensities(x, sys_idx, sys_coef, rates, max_c: int = MAX_COEF):
     for m in range(sys_idx.shape[1]):
         a = a * comb_factors(pops[:, :, m], sys_coef[None, :, m], max_c)
     return a
+
+
+def propensities_ref(x, system: ReactionSystem, rates=None) -> np.ndarray:
+    """Numpy oracle (exact combinatorics, float64)."""
+    x = np.asarray(x)
+    rates = np.asarray(rates if rates is not None else system.rates)
+    b = x.shape[0]
+    out = np.zeros((b, system.n_reactions), np.float64)
+    for bi in range(b):
+        for j in range(system.n_reactions):
+            a = 1.0
+            for i, c in zip(system.reactant_idx[j], system.reactant_coef[j]):
+                if c > 0:
+                    a *= comb(int(x[bi, i]), int(c))
+            out[bi, j] = a * (rates[bi, j] if rates.ndim == 2 else rates[j])
+    return out
+
+
+@dataclass(frozen=True)
+class SparseTables:
+    """Padded sparse structure of a ReactionSystem (numpy, identical to
+    the reference's). Pad entries hold out-of-range indices: S for a
+    species, R for a reaction.
+
+    reactant_idx / reactant_coef / rate_pad: (R+1, M) / (R+1, M) /
+        (R+1,) — the reactant tables with one PAD reaction row (idx S,
+        coef 0, rate 0), which evaluates to propensity 0.
+    dep_idx: (R+1, K) int32 — dep(j), the reactions whose reactant
+        populations change when j fires; row R is all-pad.
+    delta_idx: (R+1, D) int32 — the species j changes; row R all-pad.
+    delta_val: (R+1, D) float32 — the signed changes (0 at pads).
+    max_coef: the comb-factor unroll bound (the system's own).
+    """
+
+    reactant_idx: np.ndarray
+    reactant_coef: np.ndarray
+    rate_pad: np.ndarray
+    dep_idx: np.ndarray
+    delta_idx: np.ndarray
+    delta_val: np.ndarray
+    max_coef: int
+
+    @property
+    def out_degree(self) -> int:
+        return self.dep_idx.shape[1]
+
+
+def sparse_tables(system: ReactionSystem) -> SparseTables:
+    """The dependency graph and sparse stoichiometry of `system`.
+
+    dep(j) = { r : reactants(r) ∩ changed(j) ≠ ∅ }: after j fires only
+    these propensities can change; every other one would recompute to
+    the same bits, so its carried value is exact.
+    """
+    r, s = system.n_reactions, system.n_species
+    delta = np.asarray(system.delta)
+    idx = np.asarray(system.reactant_idx)
+    coef = np.asarray(system.reactant_coef)
+
+    by_species: list[list[int]] = [[] for _ in range(s)]
+    for j in range(r):
+        for i, c in zip(idx[j], coef[j]):
+            if c > 0:
+                by_species[int(i)].append(j)
+
+    changed = [np.nonzero(delta[j])[0] for j in range(r)]
+    deps = []
+    for j in range(r):
+        dj: set[int] = set()
+        for i in changed[j]:
+            dj.update(by_species[int(i)])
+        deps.append(sorted(dj))
+
+    k = max((len(d) for d in deps), default=1) or 1
+    d_max = max((len(c) for c in changed), default=1) or 1
+
+    dep_idx = np.full((r + 1, k), r, np.int32)
+    for j, dj in enumerate(deps):
+        dep_idx[j, :len(dj)] = dj
+    delta_idx = np.full((r + 1, d_max), s, np.int32)
+    delta_val = np.zeros((r + 1, d_max), np.float32)
+    for j, ci in enumerate(changed):
+        delta_idx[j, :len(ci)] = ci
+        delta_val[j, :len(ci)] = delta[j, ci]
+
+    m = idx.shape[1]
+    idx_pad = np.concatenate([idx, np.full((1, m), s, np.int32)], axis=0)
+    coef_pad = np.concatenate([coef, np.zeros((1, m), np.int32)], axis=0)
+    rate_pad = np.concatenate(
+        [np.asarray(system.rates, np.float32), np.zeros((1,), np.float32)])
+    return SparseTables(
+        reactant_idx=idx_pad, reactant_coef=coef_pad, rate_pad=rate_pad,
+        dep_idx=dep_idx, delta_idx=delta_idx, delta_val=delta_val,
+        max_coef=max(system.max_coef, 1))

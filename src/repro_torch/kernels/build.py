@@ -1,11 +1,13 @@
-"""Build the port's CUDA kernel with nvcc and load it with ctypes.
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-`kernels/csrc/ssa_window.cu` compiles into a shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds). The library
-lands in `build/kernels/` at the repository root, named by a digest of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. The build runs at first use and raises if nvcc
-fails. ptxas's register and spill report is kept beside the library as
+Every `kernels/csrc/*.cu` compiles into ONE shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds) in one nvcc
+call (`--threads 0` lets nvcc run its compilation steps in parallel).
+The library lands in `build/kernels/` at the repository root, named by
+a digest of every file under `csrc/` (sources and the shared header) and
+the flags, so an edited source is rebuilt and a stale library is never
+loaded. The build runs at first use and raises if nvcc fails. ptxas's
+register and spill report is kept beside the library as
 `<library>.log`.
 """
 from __future__ import annotations
@@ -17,20 +19,25 @@ import shutil
 import subprocess
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "ssa_window.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--threads", "0")
 
 _lib: ctypes.CDLL | None = None
 
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused the kernel source."""
+    """nvcc is missing or refused a kernel source."""
 
 
 def build_dir() -> Path:
     """`build/kernels/` at the repository root (listed in .gitignore)."""
     return Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
 
 
 def nvcc_path() -> str:
@@ -41,13 +48,14 @@ def nvcc_path() -> str:
             return cand
     raise KernelBuildError(
         "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
-        "kernel is built from kernels/csrc at first use")
+        "kernels are built from kernels/csrc at first use")
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"lib{SOURCE.stem}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in CSRC.iterdir() if p.is_file()):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return build_dir() / f"libssa_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -59,14 +67,15 @@ def build() -> Path:
     nvcc = nvcc_path()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.parent / f"{out.name}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                           *map(str, sources())],
                           capture_output=True, text=True, check=False)
     log = proc.stdout + proc.stderr
     out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(f"kernel build failed: {SOURCE.name}: nvcc "
-                               f"exit {proc.returncode}\n{log}")
+        raise KernelBuildError(f"kernel build failed: nvcc exit "
+                               f"{proc.returncode}\n{log}")
     os.replace(tmp, out)  # atomic: concurrent builds agree
     return out
 

@@ -19,12 +19,10 @@
 // device-side chunk loop, and a window is one launch with no mid-window
 // synchronisation.
 //
-// Bits. Every float operation is an explicitly rounded intrinsic (`_rn`),
-// so nvcc's default --fmad=true cannot contract a multiply into an add;
-// the only fused multiply-adds are the five of `log_f32`, where XLA:CPU
-// contracts them too. `log_f32` is the port's own routine
-// (repro_torch/core/mathf.py), never CUDA's logf. Sums over reactions run
-// left to right. The propensities are computed twice per event (once for
+// Bits. The stream, `log_f32` and the comb factors come from
+// ssa_common.cuh, shared with the other kernels: explicitly rounded
+// intrinsics only, never CUDA's logf. Sums over reactions run left to
+// right. The propensities are computed twice per event (once for
 // a0, once for the scan) so no per-lane R array is needed; recomputation
 // gives the same bits.
 //
@@ -37,11 +35,10 @@
 // populations live in a per-thread array that the reactant gather indexes,
 // which puts it in local memory (L1-resident).
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (kernels/build.py). C interface, bound by ctypes.
+// Build: kernels/build.py (sm_90a, one library with the other kernels).
+// C interface, bound by ctypes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ssa_common.cuh"
 
 #define SSA_MAX_S 64
 #define SSA_MAX_R 64
@@ -50,65 +47,8 @@
 
 namespace {
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// 20-round threefry2x32 (Salmon et al., SC'11): counter (c0, c1), key (k0, k1)
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t c0, uint32_t c1,
-                                             uint32_t& o0, uint32_t& o1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
-  uint32_t x0 = c0 + ks[0];
-  uint32_t x1 = c1 + ks[1];
-#pragma unroll
-  for (int blk = 0; blk < 5; ++blk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[(blk & 1) * 4 + i]) ^ x0;
-    }
-    x0 += ks[(blk + 1) % 3];
-    x1 += ks[(blk + 2) % 3] + (uint32_t)(blk + 1);
-  }
-  o0 = x0;
-  o1 = x1;
-}
-
-// top 23 bits -> mantissa of [1, 2) -> [U_MIN, 1), U_MIN = float32(1e-12)
-__device__ __forceinline__ float bits_to_uniform(uint32_t b) {
-  const float f = __uint_as_float((b >> 9) | 0x3F800000u);
-  return fmaxf(__fsub_rn(f, 1.0f), 0x1.197998p-40f);
-}
-
-// Eigen's Cephes-style plog as XLA:CPU compiles it (five contracted FMAs);
-// the same routine as repro_torch/core/mathf.py::log_f32
-__device__ __forceinline__ float log_f32(float u) {
-  const float x = fmaxf(u, 0x1.0p-126f);
-  const uint32_t bits = __float_as_uint(x);
-  float e = __fadd_rn(1.0f, (float)((int)(bits >> 23) - 127));
-  const float m = __uint_as_float((bits & 0x807FFFFFu) | 0x3F000000u);
-  const bool lt = m < 0x1.6a09e6p-1f;
-  e = __fsub_rn(e, lt ? 1.0f : 0.0f);
-  const float z = __fadd_rn(__fsub_rn(m, 1.0f), lt ? m : 0.0f);
-  const float z2 = __fmul_rn(z, z);
-  const float z3 = __fmul_rn(z2, z);
-  float y = __fmaf_rn(z, 0x1.204376p-4f, -0x1.d7a37p-4f);
-  y = __fmaf_rn(y, z, 0x1.de4a34p-4f);
-  float y1 = __fmaf_rn(z, -0x1.fcba9ep-4f, 0x1.23d37ep-3f);
-  y1 = __fmaf_rn(y1, z, -0x1.555ca0p-3f);
-  y1 = __fmaf_rn(z3, y, y1);
-  float y2 = __fmaf_rn(z, 0x1.999d58p-3f, -0x1.fffff8p-3f);
-  y2 = __fmaf_rn(y2, z, 0x1.555554p-2f);
-  const float t = __fmaf_rn(z3, y1, y2);
-  const float s = __fmaf_rn(z3, t, __fmul_rn(e, -0x1.bd0106p-13f));
-  const float a = __fmaf_rn(-0.5f, z2, z);
-  return __fmaf_rn(0x1.63p-1f, e, __fadd_rn(a, s));
-}
-
 // rates-first propensity of reaction r: rate * C(n_0, c_0) * ... in slot
-// order; xs[S] holds the padding slot's neutral 1.0
+// order; a slot with c == 0 contributes exactly 1 and is skipped
 __device__ __forceinline__ float propensity(int r, const float* xs,
                                             const int* s_idx,
                                             const int* s_coef, float rate) {
@@ -116,18 +56,9 @@ __device__ __forceinline__ float propensity(int r, const float* xs,
 #pragma unroll
   for (int m = 0; m < SSA_MAX_REACTANTS; ++m) {
     const int c = s_coef[r * SSA_MAX_REACTANTS + m];
-    if (c > 0) {  // a slot with c == 0 contributes exactly 1
+    if (c > 0) {
       const float p = xs[s_idx[r * SSA_MAX_REACTANTS + m]];
-      float ff = 1.0f;
-      float fact = 1.0f;
-#pragma unroll
-      for (int i = 0; i < SSA_MAX_COEF; ++i) {
-        if (c > i) {
-          ff = __fmul_rn(ff, fmaxf(__fsub_rn(p, (float)i), 0.0f));
-          fact = __fmul_rn(fact, (float)(i + 1));
-        }
-      }
-      a = __fmul_rn(a, __fdiv_rn(ff, fact));
+      a = __fmul_rn(a, ssa::comb_factor(p, c, SSA_MAX_COEF));
     }
   }
   return a;
@@ -181,10 +112,10 @@ __global__ void ssa_window_kernel(
     }
     const bool now_dead = a0 <= 0.0f;
     uint32_t b0, b1;
-    threefry2x32(k0, k1, c_lo, c_hi, b0, b1);
-    const float u1 = bits_to_uniform(b0);
-    const float u2 = bits_to_uniform(b1);
-    const float tau = __fdiv_rn(-log_f32(u1), fmaxf(a0, 0x1.4484cp-100f));
+    ssa::threefry2x32(k0, k1, c_lo, c_hi, b0, b1);
+    const float u1 = ssa::bits_to_uniform(b0);
+    const float u2 = ssa::bits_to_uniform(b1);
+    const float tau = ssa::waiting_time(u1, a0);
     const float t_next = __fadd_rn(tl, tau);
     if (!now_dead && t_next <= horizon) {
       const float thresh = __fmul_rn(u2, a0);

@@ -1,16 +1,19 @@
-"""The fused window: one kernel call per sim-time window.
+"""The fused windows: one kernel call per sim-time window.
 
-Port of `repro/kernels/ops.py`'s dense exact path (`window_chunk_loop`,
-`_chunk_while`, `FusedWindowOut`, `FusedWindowTruncated`). The
-reference runs back-to-back launches of `chunk_steps` events in a
-device-side while loop until no lane is live or `max_chunks` launches
-have run. Here the kernel itself loops each lane until it is no longer
-live or has spent the whole budget `chunk_steps * max_chunks`, so a
-window is ONE launch. A finished lane's steps are exact no-ops in the
-reference, so every lane ends with the bits the chunked loop gives, and
-the reference's chunk count is recovered from the draw counters: the
-loop ran min(max_chunks, ceil(max_lane(ctr_after - ctr_before) /
-chunk_steps)) times.
+Port of `repro/kernels/ops.py`'s exact paths (`window_chunk_loop`,
+`sparse_window_chunk_loop`, `_chunk_while`, `FusedWindowOut`,
+`FusedWindowTruncated`) and its Match entry point (`propensity`,
+`system_kernel_tensors`). The reference runs back-to-back launches of
+`chunk_steps` events in a device-side while loop until no lane is live
+or `max_chunks` launches have run. Here the kernel itself loops each
+lane until it is no longer live or has spent the whole budget
+`chunk_steps * max_chunks`, so a window is ONE launch. A finished
+lane's steps are exact no-ops in the reference, so every lane ends with
+the bits the chunked loop gives, and the reference's chunk count is
+recovered from the draw counters: the loop ran min(max_chunks,
+ceil(max_lane(ctr_after - ctr_before) / chunk_steps)) times. The sparse
+kernel seeds its carried propensities once per launch; they are a pure
+function of x, so that gives the chunked loop's bits too.
 """
 from __future__ import annotations
 
@@ -19,9 +22,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.gillespie import LaneState
+from repro_torch.core.gillespie import LaneState, bind_sparse_step, pad_rates
+from repro_torch.core.reactions import ReactionSystem, require_dense_capable
 from repro_torch.core.stream import MASK32, to_words
-from repro_torch.kernels.ssa_step import ssa_window_call
+from repro_torch.kernels.propensity import propensity_call
+from repro_torch.kernels.ssa_step import sparse_window_call, ssa_window_call
 
 DEFAULT_CHUNK_STEPS = 256
 DEFAULT_MAX_CHUNKS = 64
@@ -60,10 +65,64 @@ def window_chunk_loop(pool: LaneState, tensors, horizon,
     """
     idx, coef, delta, rates = tensors
     h = np.float32(horizon)
-    x, t, dead, steps_d, ctr, ctr_hi = ssa_window_call(
+    outs = ssa_window_call(
         pool.x, pool.t, pool.dead.to(torch.int32), pool.key, pool.ctr,
         pool.ctr_hi, idx, coef, delta, rates, h,
         n_steps=chunk_steps * max_chunks)
+    return _window_out(pool, outs, h, chunk_steps, max_chunks)
+
+
+class SparseWindowTables(NamedTuple):
+    """The sparse kernel's table operands for one set of rates
+    (`bind_sparse_window`): idx_pad / coef_pad (R+1, M) seed the carry,
+    int_tab / flt_tab are `gillespie.bind_sparse_step`'s recipe rows,
+    rates_pad is (R+1,) shared or (B, R+1) per lane."""
+
+    idx_pad: torch.Tensor
+    coef_pad: torch.Tensor
+    int_tab: torch.Tensor
+    flt_tab: torch.Tensor
+    rates_pad: torch.Tensor
+    max_c: int
+    d: int
+    k: int
+    packed_rates: bool  # shared rates: the dep rows' rates sit in flt_tab
+
+
+def bind_sparse_window(sp, rates) -> SparseWindowTables:
+    """Pack `gillespie.sparse_system_tensors` tables `sp` with rates (R,)
+    or (B, R) into the sparse kernel's operands. Rates change only
+    between runs, so a caller binds once and reuses the result for
+    every window."""
+    int_tab, flt_tab, rates2d, max_c, d, k, _ = bind_sparse_step(sp, rates)
+    return SparseWindowTables(
+        sp[0], sp[1], int_tab, flt_tab,
+        pad_rates(rates) if rates2d is None else rates2d, max_c, d, k,
+        rates2d is None)
+
+
+def sparse_window_chunk_loop(pool: LaneState, tables: SparseWindowTables,
+                             horizon, chunk_steps: int = DEFAULT_CHUNK_STEPS,
+                             max_chunks: int = DEFAULT_MAX_CHUNKS
+                             ) -> FusedWindowOut:
+    """`window_chunk_loop` through the sparse exact kernel
+    (`sparse_window_call`): one launch per window with the whole budget.
+    tables: `bind_sparse_window(sp, rates)`."""
+    h = np.float32(horizon)
+    outs = sparse_window_call(
+        pool.x, pool.t, pool.dead.to(torch.int32), pool.key, pool.ctr,
+        pool.ctr_hi, *tables[:5], h, n_steps=chunk_steps * max_chunks,
+        max_c=tables.max_c, d=tables.d, k=tables.k,
+        packed_rates=tables.packed_rates)
+    return _window_out(pool, outs, h, chunk_steps, max_chunks)
+
+
+def _window_out(pool: LaneState, outs, h, chunk_steps: int,
+                max_chunks: int) -> FusedWindowOut:
+    """The new pool from a window kernel's (x, t, dead, steps, ctr,
+    ctr_hi), with the reference's chunk count and truncation flag
+    recovered from the draw counters."""
+    x, t, dead, steps_d, ctr, ctr_hi = outs
     used = (to_words(ctr) - to_words(pool.ctr)) & MASK32  # active steps
     n_chunks = torch.clamp_max(
         (used.max() + chunk_steps - 1) // chunk_steps, max_chunks)
@@ -74,3 +133,23 @@ def window_chunk_loop(pool: LaneState, tensors, horizon,
                       dead=dead > 0, no_leap=pool.no_leap)
     return FusedWindowOut(state=state, n_chunks=n_chunks,
                           truncated=truncated)
+
+
+def system_kernel_tensors(system: ReactionSystem, device=None):
+    """(idx_i32, coef_i32, delta_f32) tensors for the Match kernel — the
+    gather form of the reference's (E, coef, delta). Refuses systems
+    whose coefficients exceed the kernel's MAX_COEF unroll."""
+    require_dense_capable(system)
+    return (torch.as_tensor(system.reactant_idx.astype(np.int32),
+                            device=device),
+            torch.as_tensor(system.reactant_coef.astype(np.int32),
+                            device=device),
+            torch.as_tensor(system.delta.astype(np.float32), device=device))
+
+
+def propensity(x, system_tensors_k, rates):
+    """(B, R) propensities of populations x through the Match kernel
+    (`propensity_call`, rates last). system_tensors_k:
+    `system_kernel_tensors(system)`; rates (R,) or (B, R)."""
+    idx, coef, _ = system_tensors_k
+    return propensity_call(x, idx, coef, rates)

@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA SSA window kernel against its plain
-twin, and the fused-kernel engine path against the unfused one, bit for
-bit on one device.
+"""The port on the card: each CUDA kernel (dense SSA window, sparse SSA
+window, Match) against its plain twin, the sparse kernel against the
+dense one, and the fused-kernel engine paths against the unfused ones,
+bit for bit on one device.
 
 Every test needs a CUDA device and nvcc and skips itself without them.
 The file imports neither JAX nor the reference package, so it runs
@@ -15,10 +16,41 @@ import torch
 import repro_torch.api as T
 from repro_torch.core import gillespie as tg
 from repro_torch.core.cwc.compile import compile_model
-from repro_torch.core.cwc.models import MODELS
+from repro_torch.core.cwc.models import MODELS, pentamer_system
+from repro_torch.core.reactions import sparse_tables
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import propensity as tkp
 from repro_torch.kernels import ssa_step as tks
 
-HORIZON = {"lv8": 0.05, "ecoli": 10.0, "transport": 2.0}
+HORIZON = {"lv8": 0.05, "ecoli": 10.0, "transport": 2.0, "ring8": 0.25,
+           "coef5": 0.5}
+OUTS = ("x", "t", "dead", "steps", "ctr", "ctr_hi")
+
+
+def _system(name):
+    if name == "coef5":  # a reactant coefficient above MAX_COEF
+        return pentamer_system()
+    return compile_model(MODELS[name]())[0]
+
+
+def _assert_bitwise(outs_a, outs_b, what):
+    for a, c, f in zip(outs_a, outs_b, OUTS):
+        if a.dtype == torch.float32:
+            a, c = a.view(torch.int32), c.view(torch.int32)
+        assert torch.equal(a, c), (what, f)
+
+
+def _sparse_args(system, b, rates, device):
+    """The pool and sparse kernel operands of one window."""
+    pool = tg.init_lanes(system, b, 3, device=device)
+    sp = tg.sparse_system_tensors(sparse_tables(system), device=device)
+    r = torch.as_tensor(system.rates if rates is None else rates,
+                        device=device)
+    tb = tops.bind_sparse_window(sp, r)
+    args = (pool.x, pool.t, pool.dead.to(torch.int32), pool.key, pool.ctr,
+            pool.ctr_hi, *tb[:5])
+    return args, dict(max_c=tb.max_c, d=tb.d, k=tb.k,
+                      packed_rates=tb.packed_rates)
 
 
 @pytest.fixture
@@ -66,6 +98,87 @@ def test_cuda_kernel_matches_plain_twin(cuda):
         tks.ssa_window_call(big, *args[1:6],
                             *tg.system_tensors(ts, device=cuda), 0.1,
                             n_steps=4)
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_kernel_matches_plain_twin(cuda):
+    """The sparse CUDA kernel against its plain twin, bitwise: ring8
+    (R=56), ecoli, a coefficient-5 system, per-lane rates and a budget
+    cut; and against the dense kernel on ecoli."""
+    rng = np.random.default_rng(1)
+    b = 4096
+    for name, per_lane, n_steps in (("ring8", False, 4096),
+                                    ("ecoli", False, 4096),
+                                    ("coef5", False, 4096),
+                                    ("transport", True, 4096),
+                                    ("ring8", True, 8)):
+        ts = _system(name)
+        args, static = _sparse_args(ts, b, _rates(ts, b, rng, per_lane),
+                                    cuda)
+        before = tks.sparse_window_call.launches
+        k = tks.sparse_window_call(*args, HORIZON[name], n_steps=n_steps,
+                                   **static)
+        assert tks.sparse_window_call.launches == before + 1
+        p = tks.sparse_window_plain(*args, HORIZON[name], n_steps=n_steps,
+                                    **static)
+        torch.cuda.synchronize()
+        _assert_bitwise(k, p, name)
+        assert int(k[3].sum()) > 0, name
+        live = (k[1] < HORIZON[name]) & (k[2] == 0)
+        assert bool(live.any()) == (n_steps == 8), name
+    ts = _system("ecoli")
+    args, static = _sparse_args(ts, b, None, cuda)
+    sparse = tks.sparse_window_call(*args, 20.0, n_steps=4096, **static)
+    dense = tks.ssa_window_call(*args[:6], *tg.system_tensors(ts,
+                                                              device=cuda),
+                                20.0, n_steps=4096)
+    torch.cuda.synchronize()
+    _assert_bitwise(sparse, dense, "ecoli sparse vs dense")
+
+
+@pytest.mark.cuda
+def test_cuda_propensity_kernel_matches_plain_twin(cuda):
+    """The Match kernel against its plain twin, bitwise, with shared and
+    per-lane rates."""
+    rng = np.random.default_rng(2)
+    for name in ("lv8", "ring8", "transport"):
+        ts = _system(name)
+        tens = tops.system_kernel_tensors(ts, device=cuda)
+        x = torch.as_tensor(rng.integers(0, 200, (3000, ts.n_species))
+                            .astype(np.float32), device=cuda)
+        for per_lane in (False, True):
+            rates = torch.as_tensor(
+                _rates(ts, 3000, rng, True) if per_lane else ts.rates,
+                device=cuda)
+            before = tkp.propensity_call.launches
+            k = tops.propensity(x, tens, rates)
+            assert tkp.propensity_call.launches == before + 1
+            p = tkp.propensity_plain(x, tens[0], tens[1], rates)
+            torch.cuda.synchronize()
+            assert torch.equal(k.view(torch.int32), p.view(torch.int32)), \
+                (name, per_lane)
+
+
+@pytest.mark.cuda
+def test_cuda_simulate_sparse_kernel_path_matches_unfused(cuda):
+    """simulate(sparse=True) on the card: the sparse kernel path (one
+    launch per window) against the unfused sparse loop and the dense
+    kernel path, records and final pool bit for bit."""
+    exp = T.Experiment(model=MODELS["ring8"](),
+                       ensemble=T.Ensemble.make(replicas=256),
+                       schedule=T.Schedule(t_end=0.5, n_windows=2),
+                       n_lanes=128, seed=4, sparse=True)
+    before = tks.sparse_window_call.launches
+    fused = T.simulate(exp.with_(use_kernel=True))  # default device
+    assert tks.sparse_window_call.launches == before + 2
+    unfused = T.simulate(exp, device=cuda)
+    dense = T.simulate(exp.with_(sparse=False, use_kernel=True), device=cuda)
+    for other in (unfused, dense):
+        for a, b in zip(fused.records, other.records):
+            for f in ("mean", "var", "ci90"):
+                assert getattr(a, f).tobytes() == getattr(b, f).tobytes(), f
+        assert (fused.final_state() == other.final_state()).all()
+    assert sum(fused.telemetry.steps_per_window) > 0
 
 
 @pytest.mark.cuda
