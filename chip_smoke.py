@@ -18,28 +18,41 @@ Phases (each prints its own lines; any failure exits non-zero):
              window on ring80 (shared rates), lattice8x8 (per-lane
              rates), ecoli (also against the dense kernel), a
              coefficient-5 system and a budget cut; the Match kernel on
-             lv8 and ring80 with shared and per-lane rates.
+             lv8 and ring80 with shared and per-lane rates; the dense
+             tau-leap window on lv8 (shared and per-lane rates, the
+             latter with half the lanes pinned to exact steps), ecoli and
+             transport, and with an unreachable leap threshold against
+             the exact kernel on lv8; the sparse tau-leap window on ring8
+             and ring80, and against the dense tau kernel on ecoli.
 3. main    — the dense main path at full width:
              simulate(Experiment(lv8, 2^20 replicas, use_kernel=True)).
 3b. sparse — the sparse main path at full width:
              simulate(Experiment(ring80, 2^18 replicas, sparse=True,
              use_kernel=True)).
-             For each main path the kernel's launch counter is set to 0
-             just before and read just after and must equal the window
-             count; the records must be finite, a second run must
-             repeat them bit for bit, and every window mean must agree
-             with a float64 recomputation from the pulled observables
-             (rtol 1e-5: the float32 population sums exceed 2^24). Prints
-             ms per window (CUDA events, after a warm-up window), events
-             per window, events/s, the longest lane and the warp
-             step-slot efficiency. Then times one full-width kernel
-             launch against its plain twin on the same window, with the
-             bound (and, for the sparse kernel, the carry's traffic if it
-             streams from HBM).
 3c. match  — the Match entry point `kernels.ops.propensity` at full
              width on the populations that 3b ends with, shared and
              per-lane rates: launches (counter set to 0 just before),
              kernel against twin, times and bound.
+3d. tau dense  — tau-leaping at the width and schedule of 3:
+             simulate(Experiment(lv8, 2^20 replicas,
+             method=Method.TAU_LEAP, use_kernel=True)).
+3e. tau sparse — tau-leaping at the width and schedule of 3b:
+             simulate(Experiment(ring80, 2^18 replicas, sparse=True,
+             method=Method.TAU_LEAP, use_kernel=True)).
+             For each main path (3, 3b, 3d, 3e) the kernel's launch
+             counter is set to 0 just before and read just after and
+             must equal the window count; the records must be finite, a
+             second run must repeat them bit for bit, and every window
+             mean must agree with a float64 recomputation from the
+             pulled observables (rtol 1e-5: the float32 population sums
+             exceed 2^24); a tau path must leap. Prints ms per window
+             (CUDA events, after a warm-up window), events (tau: solver
+             iterations and the leap share) per window, the longest lane
+             and the warp step-slot efficiency; for tau, the iterations
+             and the window times against the exact path's. Then times
+             one full-width kernel launch against its plain twin on the
+             same window, with the bound (and, for the sparse exact
+             kernel, the carry's traffic if it streams from HBM).
 4. report  — one JSON line of per-kernel numbers, the card line, then the
              result line.
 
@@ -144,6 +157,26 @@ def sparse_inputs(pool, sp, rates):
                       packed_rates=tb.packed_rates)
 
 
+def tau_inputs(system, n_lanes, seed, per_lane_rates, sparse, device,
+               no_leap=False):
+    """(tau kernel argument tuple minus the horizon, max_c) for one window
+    of a fresh pool of `system`; `no_leap` pins every other lane to exact
+    steps."""
+    import torch
+
+    from repro_torch.core.gillespie import init_lanes
+    from repro_torch.core.tau_leap import tau_tables
+
+    pool = init_lanes(system, n_lanes, seed, device=device)
+    tb = tau_tables(system, sparse=sparse, device=device)
+    rates = torch.as_tensor(sweep_rates(system, n_lanes, seed)
+                            if per_lane_rates else system.rates, device=device)
+    nl = (torch.arange(n_lanes, device=device) % 2 if no_leap
+          else torch.zeros(n_lanes, device=device)).to(torch.int32)
+    return (pool.x, pool.t, pool.dead.to(torch.int32), nl, pool.key,
+            pool.ctr, pool.ctr_hi, *tb[:6], rates, tb.gi, tb.rmask), tb.max_c
+
+
 def bitwise_diff(outs_a, outs_b) -> tuple[int, float]:
     """(number of differing elements, max abs difference) over two
     tuples of tensors of the same shapes."""
@@ -219,6 +252,56 @@ def sparse_ops(system, tables) -> tuple[int, int, int, int]:
     return f_step, fired, seed, I_STEP
 
 
+#: float32 instructions of exp_f32 (2 clamps, floor, 2 more clamps, 8
+#: FMAs, the square, the add of 1, the scaling multiply)
+F_EXP = 17
+#: int32 instructions per counter block of a leap attempt: threefry (72),
+#: the counter add and carry (2), the uniforms' bits (4)
+I_BLOCK = 78
+
+
+def tau_ops(system, tables) -> dict:
+    """The least work of one tau-leap iteration, counted from
+    kernels/csrc/tau_step.cuh (both tau kernels run it): float32
+    instructions per active iteration (`iter`), per accepted leap
+    (`leap`), per exact sub-step (`exact`) and per fired exact event
+    (`fired`); int32 instructions per accepted leap (`i_leap`) and per
+    exact sub-step (`i_exact`). An FMA counts 1.
+
+    Per iteration: the Match, a0's and max a_j's R-1 operations each,
+    and per consumed species the Cao sums (mu: multiply and add, sig2:
+    the square, multiply and add, per nonzero of its delta column), the
+    g_i terms (subtract, max, divide, add per nonzero coefficient row),
+    bnd (3), r1 (3), r2 (3) and the two minima; then tau (6). Per
+    accepted leap, its least: one attempt (the run does not record
+    rejected ones), each reaction's lam, exp_f32 and one cdf compare (the
+    Poisson terms past the first depend on the draws, which the run does
+    not record), the check and the update of x (an add and a multiply
+    per nonzero, an add and a compare per species), the clock (2); and
+    ceil(R/2) counter blocks. Per exact sub-step: the log, the uniforms
+    and the resolve, and one counter block with its bump; per fired
+    event the threshold, one scan add and compare and the fewest
+    nonzero entries of a delta row."""
+    import numpy as np
+
+    r = system.n_reactions
+    coef = system.reactant_coef
+    nnz_col = (np.asarray(tables.col_j.cpu()) < r).sum(axis=1)
+    gi = np.asarray(tables.gi.cpu())
+    consumed = np.asarray(tables.rmask.cpu()) > 0
+    cao = sum(5 * int(nnz_col[i]) + 4 * int((gi[1:, i] != 0).sum()) + 11
+              for i in np.nonzero(consumed)[0])
+    f_iter = (sum(slot_ops(row) for row in coef) + 2 * (r - 1) + cao + 6)
+    nnz = int(nnz_col.sum())
+    s = system.n_species
+    f_leap = r * (1 + F_EXP + 1) + 2 * (2 * nnz + 2 * s) + 2
+    n_pairs = (r + 1) // 2
+    nnz_row = int((system.delta != 0).sum(axis=1).min())
+    return dict(iter=f_iter, leap=f_leap,
+                exact=F_LOG + F_UNIFORMS + F_RESOLVE, fired=3 + nnz_row,
+                i_leap=n_pairs * I_BLOCK + 2, i_exact=I_STEP)
+
+
 def pool_bytes(b, s) -> int:
     """Bytes of a window's pool read and written once: x in and out, t,
     dead, ctr, ctr_hi in and out, the key in, the steps out."""
@@ -278,14 +361,19 @@ def phase_kernels(device) -> dict:
     from repro_torch.kernels.ops import propensity, system_kernel_tensors
     from repro_torch.kernels.propensity import propensity_plain
     from repro_torch.kernels.ssa_step import (
+        sparse_tau_window_call,
+        sparse_tau_window_plain,
         sparse_window_call,
         sparse_window_plain,
         ssa_window_call,
         ssa_window_plain,
+        tau_window_call,
+        tau_window_plain,
     )
 
     budget = 256 * 64
-    worst = {"ssa_window": 0.0, "sparse_window": 0.0, "propensity": 0.0}
+    worst = {"ssa_window": 0.0, "sparse_window": 0.0, "propensity": 0.0,
+             "tau_window": 0.0, "sparse_tau_window": 0.0}
 
     def check(kernel, label, outs_k, outs_p, horizon, n_steps):
         n_diff, err = bitwise_diff(outs_k, outs_p)
@@ -364,6 +452,64 @@ def phase_kernels(device) -> dict:
                 raise AssertionError(f"propensity and its twin disagree: "
                                      f"{name}")
             worst["propensity"] = max(worst["propensity"], err)
+
+    tau_cases = [  # (model, per-lane rates, no_leap half, horizon)
+        ("lv8", False, False, 0.5),
+        ("lv8", True, True, 0.5),
+        ("ecoli", False, False, 50.0),
+        ("transport", True, False, 2.0),
+    ]
+    for name, per_lane, no_leap, horizon in tau_cases:
+        system = system_of(name)
+        args, _ = tau_inputs(system, CHECK_LANES, CHECK_SEED, per_lane, False,
+                             device, no_leap)
+        kw = dict(n_steps=budget, eps=0.03, fallback=10.0)
+        k = tau_window_call(*args, horizon, **kw)
+        p = tau_window_plain(*args, horizon, **kw)
+        check("tau_window", f"{name} B={CHECK_LANES} rates="
+              f"{'(B,R)' if per_lane else '(R,)'}"
+              f"{' no_leap=half' if no_leap else ''}, {int(k[4].sum())} "
+              f"leaps,", k, p, horizon, budget)
+    # an unreachable leap threshold: the exact kernel's window
+    system = system_of("lv8")
+    args, _ = tau_inputs(system, CHECK_LANES, CHECK_SEED, False, False,
+                         device)
+    k = tau_window_call(*args, 0.5, n_steps=budget, eps=0.03,
+                        fallback=float("inf"))
+    d = ssa_window_call(*args[:3], *args[4:7],
+                        *system_tensors(system, device=device), 0.5,
+                        n_steps=budget)
+    n_diff, _ = bitwise_diff((*k[:4], *k[5:7]), d)
+    log(f"[kernels] tau_window fallback=inf vs ssa_window lv8 B="
+        f"{CHECK_LANES}: {int(k[4].sum())} leaps, {n_diff} differing "
+        f"elements")
+    if n_diff or int(k[4].sum()):
+        raise AssertionError("tau kernel without leaps and exact kernel "
+                             "disagree")
+
+    sparse_tau_cases = [  # (model, fallback, horizon)
+        ("ring8", 3.0, 0.5),  # ring8 leaps only below the default 10
+        ("ring80", 10.0, 0.5),
+        ("ecoli", 10.0, 50.0),
+    ]
+    for name, fallback, horizon in sparse_tau_cases:
+        system = system_of(name)
+        args, max_c = tau_inputs(system, CHECK_LANES, CHECK_SEED, False, True,
+                                 device)
+        kw = dict(n_steps=budget, eps=0.03, fallback=fallback)
+        k = sparse_tau_window_call(*args, horizon, max_c=max_c, **kw)
+        p = sparse_tau_window_plain(*args, horizon, max_c=max_c, **kw)
+        label = (f"{name} S={system.n_species} R={system.n_reactions} "
+                 f"B={CHECK_LANES} fallback={fallback:g}, "
+                 f"{int(k[4].sum())} leaps,")
+        check("sparse_tau_window", label, k, p, horizon, budget)
+        if name == "ecoli":  # the sparse tau kernel against the dense one
+            d = tau_window_call(*args, horizon, **kw)
+            n_diff, _ = bitwise_diff(k, d)
+            log(f"[kernels] sparse_tau_window vs tau_window {label}: "
+                f"{n_diff} differing elements")
+            if n_diff:
+                raise AssertionError("sparse and dense tau kernels disagree")
     return worst
 
 
@@ -375,8 +521,9 @@ def drive_main(exp, counter, label, device) -> tuple[dict, float]:
     ms)."""
     import numpy as np
 
-    from repro_torch.api import simulate
+    from repro_torch.api import Method, simulate
 
+    tau = exp.method is Method.TAU_LEAP
     n_windows = exp.schedule.n_windows
     counter.launches = 0
     t0 = time.perf_counter()
@@ -384,12 +531,15 @@ def drive_main(exp, counter, label, device) -> tuple[dict, float]:
     eng = res._engine
     win_ms, lane_max, warp_eff = [], [], []
     while not res.completed:
-        ctr0 = eng._pool.ctr
+        # an exact step consumes one counter block; a tau lane's solver
+        # iterations are its steps
+        work0 = eng._pool.steps if tau else eng._pool.ctr
         win_ms.append(cuda_ms(lambda: res.resume(max_windows=1)))
-        # per-lane active steps this window, read outside the timed span:
-        # the longest lane, and the share of each warp's 32 x (longest
-        # lane) step slots that did work
-        used = (eng._pool.ctr.long() - ctr0.long()) & 0xFFFFFFFF
+        # per-lane work this window, read outside the timed span: the
+        # longest lane, and the share of each warp's 32 x (longest lane)
+        # step slots that did work
+        work = eng._pool.steps if tau else eng._pool.ctr
+        used = (work.long() - work0.long()) & 0xFFFFFFFF
         lane_max.append(int(used.max()))
         warp_eff.append(float(used.sum()) / float(
             32 * used.view(-1, 32).max(dim=1).values.sum()))
@@ -397,23 +547,31 @@ def drive_main(exp, counter, label, device) -> tuple[dict, float]:
     launches = counter.launches
     recs = res.records
     steps = res.telemetry.steps_per_window
+    leaps = res.telemetry.leaps_per_window
     pool_mb = sum(t.numel() * t.element_size() for t in eng._pool) / 1e6
     n = exp.ensemble.n_instances
+    what = "solver iterations" if tau else "events"
     log(f"[{label}] {eng.system.n_species} species, "
         f"{eng.system.n_reactions} reactions x {n} lanes, {n_windows} "
         f"windows to t={exp.schedule.t_end}: {launches} kernel launches, "
         f"{wall:.2f} s wall, pool {pool_mb:.1f} MB on the device")
-    log(f"[{label}] events per window: {list(steps)}")
-    timed_events = sum(steps[1:])
+    log(f"[{label}] {what} per window: {list(steps)}")
+    if tau:
+        log(f"[{label}] accepted leaps per window: {list(leaps)}; leap "
+            f"share {[round(lp / max(st, 1), 4) for lp, st in zip(leaps, steps)]}")
+    timed = sum(steps[1:])
     log(f"[{label}] ms per window after warm-up: "
         f"{[round(m, 3) for m in win_ms]}; mean {np.mean(win_ms):.3f} ms, "
-        f"{timed_events / (sum(win_ms) / 1e3):.4g} events/s")
-    log(f"[{label}] longest lane's steps per window after warm-up: "
-        f"{lane_max} (budget {exp.kernel_chunk_steps * exp.kernel_max_chunks}"
-        f"); warp step-slot efficiency {[round(e, 4) for e in warp_eff]}")
+        f"{timed / (sum(win_ms) / 1e3):.4g} {what}/s")
+    log(f"[{label}] longest lane's {'steps' if tau else 'active steps'} per "
+        f"window after warm-up: {lane_max} (budget "
+        f"{exp.kernel_chunk_steps * exp.kernel_max_chunks}); warp "
+        f"step-slot efficiency {[round(e, 4) for e in warp_eff]}")
     if launches != n_windows:
         raise AssertionError(f"{label}: {launches} kernel launches for "
                              f"{n_windows} windows")
+    if tau and not sum(leaps) > 0:
+        raise AssertionError(f"{label}: the tau-leap path never leaped")
     means = np.stack([r.mean for r in recs])
     if len(recs) != n_windows or not all(
             np.isfinite(v).all() for r in recs
@@ -432,7 +590,8 @@ def drive_main(exp, counter, label, device) -> tuple[dict, float]:
         f"{rel:.3g} (tolerance {MAIN_RTOL:g}); rerun bitwise equal")
     if not rel <= MAIN_RTOL:
         raise AssertionError(f"{label}: record means disagree with float64")
-    return dict(launches=launches, final_x=res2._engine._pool.x), win_ms[0]
+    return dict(launches=launches, final_x=res2._engine._pool.x,
+                steps=list(steps), win_ms=win_ms), win_ms[0]
 
 
 def time_against_twin(label, launch, plain, reps=5):
@@ -495,7 +654,8 @@ def phase_main(device) -> dict:
         f"same window took {win0_ms:.3f} ms end to end, kernel share "
         f"{k_ms / win0_ms:.4f}")
     return dict(launches=nums["launches"], ms=k_ms, plain_ms=p_ms,
-                bound_ms=bound, bound_by=by, err=err)
+                bound_ms=bound, bound_by=by, err=err, steps=nums["steps"],
+                win_ms=nums["win_ms"])
 
 
 def phase_sparse(device) -> dict:
@@ -553,7 +713,7 @@ def phase_sparse(device) -> dict:
         f"again)")
     return dict(launches=nums["launches"], ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound, bound_by=by, err=err, final_x=nums["final_x"],
-                system=system)
+                system=system, steps=nums["steps"], win_ms=nums["win_ms"])
 
 
 def phase_match(device, x, system) -> dict:
@@ -598,6 +758,78 @@ def phase_match(device, x, system) -> dict:
     return out
 
 
+def phase_tau(device, sparse: bool, exact: dict) -> dict:
+    """Tau-leaping at full width, the model, width and schedule of the
+    exact path `exact` (phase 3 or 3b): launches, checks, the iterations
+    and window times against the exact path's, and one full-width window
+    of the kernel against its plain twin with the bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (
+        Ensemble,
+        Experiment,
+        Method,
+        Schedule,
+        build_engine,
+    )
+    from repro_torch.core.cwc.models import MODELS
+    from repro_torch.kernels import ssa_step
+
+    name, replicas, t_end, n_windows = (
+        (SPARSE_MODEL, SPARSE_REPLICAS, SPARSE_T_END, SPARSE_WINDOWS)
+        if sparse else (MAIN_MODEL, MAIN_REPLICAS, MAIN_T_END, MAIN_WINDOWS))
+    label = "tau sparse" if sparse else "tau dense"
+    call, plain = ((ssa_step.sparse_tau_window_call,
+                    ssa_step.sparse_tau_window_plain) if sparse else
+                   (ssa_step.tau_window_call, ssa_step.tau_window_plain))
+    exp = Experiment(model=MODELS[name](),
+                     ensemble=Ensemble.make(replicas=replicas),
+                     schedule=Schedule(t_end=t_end, n_windows=n_windows),
+                     n_lanes=1024, sparse=sparse, use_kernel=True,
+                     method=Method.TAU_LEAP)
+    nums, win0_ms = drive_main(exp, call, label, device)
+    ratio = [round(a / max(b, 1), 4) for a, b in zip(nums["steps"],
+                                                      exact["steps"])]
+    t_ratio = [round(a / b, 4) for a, b in zip(nums["win_ms"],
+                                               exact["win_ms"])]
+    log(f"[{label}] solver iterations / the exact path's events per "
+        f"window: {ratio}; window ms / the exact path's (windows 2-"
+        f"{n_windows}): {t_ratio}")
+
+    # one full-width launch of a main-path window: kernel vs plain twin
+    eng = build_engine(exp, device=device)
+    eng.run_window()
+    pool, tb = eng._pool, eng._tau_tables
+    args = (pool.x, pool.t, pool.dead.to(torch.int32),
+            pool.no_leap.to(torch.int32), pool.key, pool.ctr,
+            pool.ctr_hi, *tb[:6], eng._rates_dev, tb.gi, tb.rmask)
+    horizon = float(np.float32(eng.grid[1]))
+    kw = dict(n_steps=exp.kernel_chunk_steps * exp.kernel_max_chunks,
+              eps=exp.tau_eps, fallback=exp.tau_fallback,
+              **({"max_c": tb.max_c} if sparse else {}))
+    k_ms, p_ms, out, err = time_against_twin(
+        label, lambda: call(*args, horizon, **kw),
+        lambda: plain(*args, horizon, **kw), reps=3)
+    iters, leaps = int(out[7].sum()), int(out[4].sum())
+    fired = int(out[3].sum()) - leaps
+    ops = tau_ops(eng.system, tb)
+    b, s = pool.x.shape
+    # the pool in and out, no_leap in, leaps and iterations out, tables
+    n_bytes = pool_bytes(b, s) + b * 12 + nbytes(*args[7:])
+    bound, by, detail = bound_of(
+        n_bytes, iters * ops["iter"] + leaps * ops["leap"]
+        + (iters - leaps) * ops["exact"] + fired * ops["fired"],
+        leaps * ops["i_leap"] + (iters - leaps) * ops["i_exact"])
+    log(f"[{label}] one window at full width: kernel {k_ms:.3f} ms, plain "
+        f"twin {p_ms:.1f} ms, 0 differing elements; {iters} active lane "
+        f"iterations, {leaps} leaps, {fired} exact events; bound "
+        f"{bound:.4f} ms ({detail}); the same window took {win0_ms:.3f} ms "
+        f"end to end, kernel share {k_ms / win0_ms:.4f}")
+    return dict(launches=nums["launches"], ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound, bound_by=by, err=err)
+
+
 def main() -> int:
     try:
         import torch
@@ -624,6 +856,8 @@ def main() -> int:
     dense = phase_main(device)
     sparse = phase_sparse(device)
     match = phase_match(device, sparse.pop("final_x"), sparse.pop("system"))
+    tau_dense = phase_tau(device, False, dense)
+    tau_sparse = phase_tau(device, True, sparse)
     entries = [
         ("ssa_window", "ssa_window.cu", "src/repro/kernels/ssa_step.py:64",
          dense),
@@ -631,6 +865,10 @@ def main() -> int:
          "src/repro/kernels/ssa_step.py:291", sparse),
         ("propensity", "propensity.cu", "src/repro/kernels/propensity.py:72",
          match),
+        ("tau_window", "tau_window.cu", "src/repro/kernels/ssa_step.py:178",
+         tau_dense),
+        ("sparse_tau_window", "sparse_tau_window.cu",
+         "src/repro/kernels/ssa_step.py:423", tau_sparse),
     ]
     report = {"kernels": [{
         "name": name,
@@ -645,10 +883,11 @@ def main() -> int:
         "bound_by": nums["bound_by"],
         "library_ms": None,
     } for name, src, replaces, nums in entries]}
-    log("[report] library_ms is null for all three: no single PyTorch call "
-        "computes an SSA window (a loop of draws, sums and data-dependent "
-        "updates), and none computes a mass-action Match (a product of "
-        "binomial factors over gathered populations)")
+    log("[report] library_ms is null for all five: no single PyTorch call "
+        "computes an SSA or tau-leap window (a loop of draws, sums, Poisson "
+        "inversions and data-dependent updates), and none computes a "
+        "mass-action Match (a product of binomial factors over gathered "
+        "populations)")
     log(f"[done] all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps(report))

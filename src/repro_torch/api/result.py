@@ -32,8 +32,11 @@ class Telemetry:
     the record pull then waits for.
     block_walls: (window, 1, dispatch_s, collect_s) rows; collect_s is
     the blocking pull plus host-side emit.
-    steps_per_window: pool-total events fired per window.
-    leaps_per_window: accepted tau-leaps per window (zero: exact only).
+    steps_per_window: pool-total solver iterations that advanced a lane
+    per window (exact SSA: events fired; tau-leaping: accepted leaps
+    plus fired exact steps).
+    leaps_per_window: accepted tau-leaps per window (zero on exact
+    SSA); steps - leaps is tau-leaping's exact-fallback share.
     """
 
     wall_time_s: float

@@ -48,7 +48,10 @@ def build_engine(experiment: Experiment, device=None) -> SimulationEngine:
             sparse=experiment.sparse,
             kernel_chunk_steps=experiment.kernel_chunk_steps,
             kernel_max_chunks=experiment.kernel_max_chunks,
-            stat_blocks=part.blocks if part is not None else 1)
+            stat_blocks=part.blocks if part is not None else 1,
+            method=experiment.method.value,
+            tau_eps=float(experiment.tau_eps),
+            tau_fallback=float(experiment.tau_fallback))
         group_ids = (ens.group_ids()
                      if experiment.reduction is Reduction.PER_POINT
                      else None)

@@ -61,8 +61,8 @@ class Policy(_Coercible):
 
 
 class Method(_Coercible):
-    """The per-lane simulation algorithm. Only EXACT (Gillespie's
-    direct SSA) is ported; TAU_LEAP is refused by validate()."""
+    """The per-lane simulation algorithm: Gillespie's direct SSA, or
+    adaptive tau-leaping with a per-lane exact fallback."""
 
     EXACT = "exact"
     TAU_LEAP = "tau_leap"
@@ -196,8 +196,9 @@ class Experiment:
     """One fully-specified ensemble simulation (the reference's fields
     and defaults).
 
-    use_kernel: advance each window through the fused CUDA SSA kernel —
-    one launch per window, bitwise identical to the unfused path.
+    use_kernel: advance each window through a fused CUDA kernel (exact
+    SSA or tau-leaping, dense or sparse) — one launch per window,
+    bitwise identical to the unfused path.
     kernel_chunk_steps / kernel_max_chunks: the kernel path's per-window
     event budget (chunk_steps * max_chunks events per lane); a window
     needing more raises FusedWindowTruncated.
@@ -209,10 +210,15 @@ class Experiment:
     over padded sparse tables, for networks of hundreds of species and
     reactions and for any reactant coefficient; bitwise identical to
     the dense step where both run.
+    method: Method.EXACT (Gillespie's direct SSA) or Method.TAU_LEAP
+    (adaptive tau-leaping; tau_eps bounds each leap's relative
+    propensity drift, tau_fallback is the fewest expected events a leap
+    must cover, else the lane takes one exact step). Both run dense or
+    sparse, through the kernels or the unfused loop.
 
-    method=TAU_LEAP, sketch, steering, recovery, host_loop,
-    window_block > 1, pipeline_depth != 1 and a multi-shard
-    partitioning are not ported yet and are refused by validate().
+    sketch, steering, recovery, host_loop, window_block > 1,
+    pipeline_depth != 1 and a multi-shard partitioning are not ported
+    yet and are refused by validate().
     """
 
     model: Union[CWCModel, ReactionSystem]
@@ -299,8 +305,6 @@ class Experiment:
         """Options whose machinery the port does not have yet, each
         with its ROADMAP queue-1 item."""
         unported = [
-            (self.method is Method.TAU_LEAP, "method=Method.TAU_LEAP",
-             "item 10, tau-leaping"),
             (self.sketch is not None, "sketch", "item 12, sketches"),
             (self.steering is not None, "steering", "item 13, steering"),
             (self.partitioning is not None

@@ -2,24 +2,27 @@
 the per-window fused strategy of `repro/core/dispatch.py`.
 
 Two bodies, selected by `SimConfig.use_kernel`, both bitwise identical
-per lane, each dense or sparse (`SimConfig.sparse`):
+per lane, each dense or sparse (`SimConfig.sparse`) and exact or
+tau-leaping (`SimConfig.method`):
 
   unfused (`make_window_body`): the scheduler's lane groups gathered by
       permutation, each advanced by the masked per-lane loop
-      (`gillespie.make_advance_fn` over `ssa_step`, or
-      `make_sparse_advance_fn` over `sparse_ssa_step` with its carried
-      propensities), scattered back;
+      (`gillespie.make_advance_fn` over `ssa_step` or the tau step
+      `core.tau_leap.make_tau_step`, or `make_sparse_advance_fn` over
+      `sparse_ssa_step` with its carried propensities), scattered back;
   kernel (`FusedDispatch.advance`): the whole pool through a fused CUDA
-      window (`kernels.ops.window_chunk_loop` or
-      `sparse_window_chunk_loop`, its tables bound to the rates once) —
-      one kernel launch per window. Lane groups would not change a
-      single trajectory, so the kernel path ignores them.
+      window (`kernels.ops.window_chunk_loop`,
+      `sparse_window_chunk_loop`, `tau_window_chunk_loop` or
+      `sparse_tau_window_chunk_loop`, its tables bound to the rates
+      once) — one kernel launch per window. Lane groups would not
+      change a single trajectory, so the kernel path ignores them.
 
 Both end in the same device-side observable extraction, which is what
 keeps the two paths' records bitwise comparable.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, NamedTuple
 
 import torch
@@ -30,9 +33,12 @@ from repro_torch.core.gillespie import (
     make_sparse_advance_fn,
     ssa_step,
 )
+from repro_torch.core.tau_leap import make_tau_step
 from repro_torch.kernels.ops import (
     bind_sparse_window,
+    sparse_tau_window_chunk_loop,
     sparse_window_chunk_loop,
+    tau_window_chunk_loop,
     window_chunk_loop,
 )
 
@@ -98,24 +104,39 @@ class FusedDispatch:
         cfg = engine.cfg
         self._kernel = cfg.use_kernel
         sp = engine._sparse_tensors
+        tau = engine._tau_tables
         if self._kernel:
             self._extract_obs = _obs_extractor(engine.obs_idx)
             self.set_rates(engine._rates_dev)
         else:
-            self._body = make_window_body(
-                make_advance_fn(ssa_step, engine._tensors_base[:3],
-                                cfg.max_steps_per_window)
-                if sp is None else
-                make_sparse_advance_fn(sp, cfg.max_steps_per_window),
-                engine.scheduler.n_lanes, engine.obs_idx)
+            if tau is not None:
+                advance = make_advance_fn(
+                    make_tau_step(tau, cfg.tau_eps, cfg.tau_fallback),
+                    engine._tensors_base[:3], cfg.max_steps_per_window)
+            elif sp is None:
+                advance = make_advance_fn(ssa_step, engine._tensors_base[:3],
+                                          cfg.max_steps_per_window)
+            else:
+                advance = make_sparse_advance_fn(sp,
+                                                 cfg.max_steps_per_window)
+            self._body = make_window_body(advance, engine.scheduler.n_lanes,
+                                          engine.obs_idx)
 
     def set_rates(self, rates) -> None:
         """Bind the kernel path's operands to rates (R,) or (I, R); the
         engine calls this whenever it installs new rates."""
         if not self._kernel:
             return
+        cfg = self.eng.cfg
         sp = self.eng._sparse_tensors
-        if sp is None:
+        tau = self.eng._tau_tables
+        if tau is not None:
+            loop = (sparse_tau_window_chunk_loop if cfg.sparse
+                    else tau_window_chunk_loop)
+            self._loop = partial(loop, rates=rates, eps=cfg.tau_eps,
+                                 fallback=cfg.tau_fallback)
+            self._tables = tau
+        elif sp is None:
             self._loop = window_chunk_loop
             self._tables = (*self.eng._tensors_base[:3], rates)
         else:

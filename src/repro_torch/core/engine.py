@@ -9,18 +9,21 @@ parameter sweep) under one of the paper's three schemas:
   schema "iii" time-sliced farm + on-line windowed reduction
 
 Each window advances the whole instance pool (core/dispatch.py): with
-`use_kernel=True` through a fused CUDA SSA window, one kernel launch
-per window; otherwise through the unfused group loop. `sparse=True`
+`use_kernel=True` through a fused CUDA window, one kernel launch per
+window; otherwise through the unfused group loop. `sparse=True`
 switches both to the sparse exact step (dependency-graph propensity
 updates, no S/R cap of the dense kernel, any reactant coefficient). All
-four give the same bits. The window's statistics, step counters and
-the kernel's truncation flag then come to the host in ONE combined
-device-to-host copy, and a `StatsRecord` is emitted.
+four give the same bits. `method="tau_leap"` runs adaptive tau-leaping
+(core/tau_leap.py) instead of exact SSA on every one of these paths,
+again with the same bits on all four. The window's statistics,
+step/leap counters and the kernel's truncation flag then come to the
+host in ONE combined device-to-host copy, and a `StatsRecord` is
+emitted.
 
 Not ported yet (each raises in `repro_torch.api` before an engine is
-built): tau-leaping, sketches, steering, supervision, multi-shard
-partitioning, supersteps and pipelining, the host-loop dispatch
-strategy, and checkpoints.
+built): sketches, steering, supervision, multi-shard partitioning,
+supersteps and pipelining, the host-loop dispatch strategy, and
+checkpoints.
 """
 from __future__ import annotations
 
@@ -45,9 +48,11 @@ from repro_torch.core.gillespie import (
 from repro_torch.core.reactions import ReactionSystem, sparse_tables
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.core.stream import StatsRecord, StatsStream
+from repro_torch.core.tau_leap import tau_tables
 
 SCHEMAS = ("i", "ii", "iii")
 POLICIES = ("static_rr", "on_demand", "predictive")
+METHODS = ("exact", "tau_leap")
 
 
 @dataclass(frozen=True)
@@ -68,6 +73,13 @@ class SimConfig:
     kernel_chunk_steps: int = 256
     kernel_max_chunks: int = 64
     stat_blocks: int = 1  # contiguous blocks of the Welford merge tree
+    # simulation algorithm: "exact" (Gillespie's direct SSA) or
+    # "tau_leap" (adaptive Cao tau, Poisson reaction counts, per-lane
+    # exact fallback — core/tau_leap.py)
+    method: str = "exact"
+    tau_eps: float = 0.03  # Cao bound: max relative propensity drift
+    tau_fallback: float = 10.0  # leap only when tau covers >= this
+    #   many expected SSA events (else one exact step)
 
     def __post_init__(self):
         if self.schema not in SCHEMAS:
@@ -85,6 +97,17 @@ class SimConfig:
             raise ValueError(
                 f"n_instances ({self.n_instances}) must divide evenly "
                 f"into stat_blocks ({self.stat_blocks}) blocks")
+        if self.method not in METHODS:
+            raise ValueError(
+                f"SimConfig.method must be 'exact' or 'tau_leap', got "
+                f"{self.method!r}")
+        if not self.tau_eps > 0:
+            raise ValueError(
+                f"SimConfig.tau_eps must be > 0, got {self.tau_eps}")
+        if self.tau_fallback < 0:
+            raise ValueError(
+                f"SimConfig.tau_fallback must be >= 0, got "
+                f"{self.tau_fallback}")
 
 
 class InvariantViolation(RuntimeError):
@@ -132,7 +155,12 @@ class SimulationEngine:
                                             require_dense=not cfg.sparse)
         self._sparse_tensors = (sparse_system_tensors(
             sparse_tables(self.system), device=self.device)
-            if cfg.sparse else None)
+            if cfg.sparse and cfg.method == "exact" else None)
+        # the method seam: tau-leaping's tables (dense or sparse form),
+        # None for exact SSA
+        self._tau_tables = (tau_tables(self.system, sparse=cfg.sparse,
+                                       device=self.device)
+                            if cfg.method == "tau_leap" else None)
         # shared rates stay (R,) on the device (the kernel keeps them in
         # shared memory); a sweep installs an (I, R) matrix
         self.rates = np.broadcast_to(

@@ -80,6 +80,34 @@ def init_lanes(system: ReactionSystem, n_lanes: int, seed: int,
         dead=zb, no_leap=zb.clone())
 
 
+def propensity_sum(a):
+    """a0: the (B,) sum of the (B, R) propensities, left to right over R
+    from zero (XLA:CPU's order for small R; `torch.sum` is not)."""
+    a0 = torch.zeros_like(a[:, 0])
+    for r in range(a.shape[1]):
+        a0 = a0 + a[:, r]
+    return a0
+
+
+def direct_method(a, a0, t, u1, u2):
+    """The direct method's Resolve from one counter block's uniforms:
+    (t_next, j) with t_next = t - log(u1) / max(a0, 1e-30) and j the
+    first r whose left-to-right running sum of `a` reaches u2 * a0 (0
+    if none). Shared by the exact step and tau-leaping's exact
+    sub-step, so the two spell it alike."""
+    t_next = t + -log_f32(u1) / torch.clamp_min(a0, _A0_FLOOR)
+    thresh = u2 * a0
+    cum = torch.zeros_like(a0)
+    j = torch.zeros(a0.shape, dtype=torch.int64, device=a0.device)
+    found = torch.zeros(a0.shape, dtype=torch.bool, device=a0.device)
+    for r in range(a.shape[1]):
+        cum = cum + a[:, r]
+        hit = (cum >= thresh) & ~found
+        j = torch.where(hit, r, j)
+        found = found | hit
+    return t_next, j
+
+
 def ssa_step(state: LaneState, system_tensors, horizon) -> LaneState:
     """One vectorised direct-method step, masked at the horizon.
 
@@ -90,27 +118,13 @@ def ssa_step(state: LaneState, system_tensors, horizon) -> LaneState:
     idx, coef, delta, rates = system_tensors
     active = (state.t < horizon) & ~state.dead
     a = propensities(state.x, idx, coef, rates)  # (B, R)
-    n_r = a.shape[1]
-    a0 = torch.zeros_like(state.t)
-    for r in range(n_r):
-        a0 = a0 + a[:, r]
+    a0 = propensity_sum(a)
     now_dead = a0 <= 0.0
     k = to_words(state.key)
     u1, u2 = counter_uniforms(k[:, 0], k[:, 1], to_words(state.ctr),
                               to_words(state.ctr_hi))
-    tau = -log_f32(u1) / torch.clamp_min(a0, _A0_FLOOR)
-    t_next = state.t + tau
+    t_next, j = direct_method(a, a0, state.t, u1, u2)
     fire = active & ~now_dead & (t_next <= horizon)
-    # inverse-CDF choice: first j with cumsum(a)_j >= u2 * a0 (0 if none)
-    thresh = u2 * a0
-    cum = torch.zeros_like(a0)
-    j = torch.zeros(a0.shape, dtype=torch.int64, device=a0.device)
-    found = torch.zeros_like(now_dead)
-    for r in range(n_r):
-        cum = cum + a[:, r]
-        hit = (cum >= thresh) & ~found
-        j = torch.where(hit, r, j)
-        found = found | hit
     x = torch.where(fire[:, None], state.x + delta[j], state.x)
     # fired lanes advance to t_next; an active lane that did not fire
     # (dead, or its next event would cross) freezes at the horizon

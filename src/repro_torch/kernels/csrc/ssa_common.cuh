@@ -1,13 +1,14 @@
 // Bit-exact building blocks shared by the port's kernels (ssa_window.cu,
-// sparse_window.cu, propensity.cu): one spelling of the random stream, the
-// logarithm and the combination counts, so every kernel draws and rounds
-// as the plain torch twins do (repro_torch/core/stream.py, mathf.py,
-// reactions.py).
+// sparse_window.cu, propensity.cu, tau_window.cu, sparse_tau_window.cu):
+// one spelling of the random stream, the logarithm, the exponential, the
+// Poisson sampler and the combination counts, so every kernel draws and
+// rounds as the plain torch twins do (repro_torch/core/stream.py,
+// mathf.py, reactions.py, tau_leap.py).
 //
 // Every float operation is an explicitly rounded intrinsic (`_rn`), so
 // nvcc's default --fmad=true cannot contract a multiply into an add; the
-// only fused multiply-adds are the five of `log_f32`, where XLA:CPU
-// contracts them too.
+// only fused multiply-adds are the five of `log_f32` and the eight of
+// `exp_f32`, where XLA:CPU contracts them too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -70,6 +71,50 @@ __device__ __forceinline__ float log_f32(float u) {
   const float s = __fmaf_rn(z3, t, __fmul_rn(e, -0x1.bd0106p-13f));
   const float a = __fmaf_rn(-0.5f, z2, z);
   return __fmaf_rn(0x1.63p-1f, e, __fadd_rn(a, s));
+}
+
+// Cephes-style expf as XLA:CPU compiles it for jnp.exp (two FMAs in the
+// range reduction, six in the polynomial); the same routine as
+// repro_torch/core/mathf.py::exp_f32
+__device__ __forceinline__ float exp_f32(float x) {
+  x = fminf(fmaxf(x, -0x1.5f3334p+6f), 0x1.633334p+6f);  // [-87.8, 88.8]
+  const float n = fminf(
+      fmaxf(floorf(__fmaf_rn(x, 0x1.715476p+0f, 0.5f)), -127.0f), 127.0f);
+  float r = __fmaf_rn(n, -0x1.63p-1f, x);      // x - n * 0.693359375
+  r = __fmaf_rn(n, 0x1.bd0106p-13f, r);        // - n * -2.12194440e-4
+  const float z = __fmul_rn(r, r);
+  float y = __fmaf_rn(r, 0x1.a0d2cep-13f, 0x1.6e879cp-10f);
+  y = __fmaf_rn(y, r, 0x1.11121p-7f);
+  y = __fmaf_rn(y, r, 0x1.555382p-5f);
+  y = __fmaf_rn(y, r, 0x1.555554p-3f);
+  y = __fmaf_rn(y, r, 0.5f);
+  y = __fadd_rn(1.0f, __fmaf_rn(y, z, r));
+  return __fmul_rn(y, __int_as_float(((int)n + 127) << 23));
+}
+
+// Inverse-transform Poisson draw for lam >= 0: the number of the first 64
+// CDF terms below u (pmf = exp(-lam), then pmf *= lam / i, cdf += pmf), as
+// core/tau_leap.py::poisson_from_uniform counts them. The cdf never falls
+// when lam >= 0, so the loop stops at the first term that reaches u.
+__device__ __forceinline__ float poisson_from_uniform(float u, float lam) {
+  float pmf = exp_f32(-lam);
+  float cdf = pmf;
+  float k = 0.0f;
+  for (int i = 1; cdf < u; ++i) {
+    k = __fadd_rn(k, 1.0f);
+    if (i == 64) break;
+    pmf = __fmul_rn(pmf, __fdiv_rn(lam, (float)i));
+    cdf = __fadd_rn(cdf, pmf);
+  }
+  return k;
+}
+
+// the 64-bit counter (lo, hi) plus inc < 2^32, carry into hi
+__device__ __forceinline__ void ctr_add(uint32_t lo, uint32_t hi,
+                                        uint32_t inc, uint32_t& lo_out,
+                                        uint32_t& hi_out) {
+  lo_out = lo + inc;
+  hi_out = hi + (lo_out < lo ? 1u : 0u);
 }
 
 // C(p, c) for one reactant slot with c >= 1, as `comb_factors` evaluates

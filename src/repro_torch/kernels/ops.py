@@ -3,20 +3,25 @@
 Port of `repro/kernels/ops.py`'s exact paths (`window_chunk_loop`,
 `sparse_window_chunk_loop`, `_chunk_while`, `FusedWindowOut`,
 `FusedWindowTruncated`) and its Match entry point (`propensity`,
-`system_kernel_tensors`). The reference runs back-to-back launches of
-`chunk_steps` events in a device-side while loop until no lane is live
-or `max_chunks` launches have run. Here the kernel itself loops each
-lane until it is no longer live or has spent the whole budget
-`chunk_steps * max_chunks`, so a window is ONE launch. A finished
-lane's steps are exact no-ops in the reference, so every lane ends with
-the bits the chunked loop gives, and the reference's chunk count is
-recovered from the draw counters: the loop ran min(max_chunks,
-ceil(max_lane(ctr_after - ctr_before) / chunk_steps)) times. The sparse
-kernel seeds its carried propensities once per launch; they are a pure
-function of x, so that gives the chunked loop's bits too.
+`system_kernel_tensors`), and of its tau-leap paths
+(`tau_window_chunk_loop`, `sparse_tau_window_chunk_loop`). The reference
+runs back-to-back launches of `chunk_steps` iterations in a device-side
+while loop until no lane is live or `max_chunks` launches have run. Here
+the kernel itself loops each lane until it is no longer live or has
+spent the whole budget `chunk_steps * max_chunks`, so a window is ONE
+launch. A finished lane's iterations are exact no-ops in the reference,
+so every lane ends with the bits the chunked loop gives, and the
+reference's chunk count is min(max_chunks, ceil(max_lane(active
+iterations) / chunk_steps)). An exact step consumes one counter block,
+so the exact kernels' active steps are read off the draw counters; a
+tau iteration consumes a varying number, so the tau kernels return
+their count. The sparse exact kernel seeds its carried propensities
+once per launch; they are a pure function of x, so that gives the
+chunked loop's bits too.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -25,8 +30,14 @@ import torch
 from repro_torch.core.gillespie import LaneState, bind_sparse_step, pad_rates
 from repro_torch.core.reactions import ReactionSystem, require_dense_capable
 from repro_torch.core.stream import MASK32, to_words
+from repro_torch.core.tau_leap import TauTables
 from repro_torch.kernels.propensity import propensity_call
-from repro_torch.kernels.ssa_step import sparse_window_call, ssa_window_call
+from repro_torch.kernels.ssa_step import (
+    sparse_tau_window_call,
+    sparse_window_call,
+    ssa_window_call,
+    tau_window_call,
+)
 
 DEFAULT_CHUNK_STEPS = 256
 DEFAULT_MAX_CHUNKS = 64
@@ -69,7 +80,7 @@ def window_chunk_loop(pool: LaneState, tensors, horizon,
         pool.x, pool.t, pool.dead.to(torch.int32), pool.key, pool.ctr,
         pool.ctr_hi, idx, coef, delta, rates, h,
         n_steps=chunk_steps * max_chunks)
-    return _window_out(pool, outs, h, chunk_steps, max_chunks)
+    return _exact_window_out(pool, outs, h, chunk_steps, max_chunks)
 
 
 class SparseWindowTables(NamedTuple):
@@ -114,22 +125,74 @@ def sparse_window_chunk_loop(pool: LaneState, tables: SparseWindowTables,
         pool.ctr_hi, *tables[:5], h, n_steps=chunk_steps * max_chunks,
         max_c=tables.max_c, d=tables.d, k=tables.k,
         packed_rates=tables.packed_rates)
-    return _window_out(pool, outs, h, chunk_steps, max_chunks)
+    return _exact_window_out(pool, outs, h, chunk_steps, max_chunks)
 
 
-def _window_out(pool: LaneState, outs, h, chunk_steps: int,
-                max_chunks: int) -> FusedWindowOut:
-    """The new pool from a window kernel's (x, t, dead, steps, ctr,
-    ctr_hi), with the reference's chunk count and truncation flag
-    recovered from the draw counters."""
+def tau_window_chunk_loop(pool: LaneState, tables: TauTables, horizon, *,
+                          rates, eps: float, fallback: float,
+                          chunk_steps: int = DEFAULT_CHUNK_STEPS,
+                          max_chunks: int = DEFAULT_MAX_CHUNKS
+                          ) -> FusedWindowOut:
+    """`window_chunk_loop` through the dense tau-leap kernel
+    (`tau_window_call`): one launch per window with the whole budget of
+    chunk_steps * max_chunks iterations per lane. tables: a dense
+    `core.tau_leap.tau_tables`; rates (R,) or (B, R); a lane whose
+    `no_leap` is set takes exact steps only."""
+    return _tau_window(tau_window_call, pool, tables, horizon, rates, eps,
+                       fallback, chunk_steps, max_chunks)
+
+
+def sparse_tau_window_chunk_loop(pool: LaneState, tables: TauTables,
+                                 horizon, *, rates, eps: float,
+                                 fallback: float,
+                                 chunk_steps: int = DEFAULT_CHUNK_STEPS,
+                                 max_chunks: int = DEFAULT_MAX_CHUNKS
+                                 ) -> FusedWindowOut:
+    """`tau_window_chunk_loop` through the sparse tau-leap kernel
+    (`sparse_tau_window_call`: no S/R cap, the comb unroll to the
+    tables' max_c). Bitwise identical to the dense loop on a system both
+    take."""
+    return _tau_window(partial(sparse_tau_window_call, max_c=tables.max_c),
+                       pool, tables, horizon, rates, eps, fallback,
+                       chunk_steps, max_chunks)
+
+
+def _tau_window(call, pool, tables, horizon, rates, eps, fallback,
+                chunk_steps, max_chunks) -> FusedWindowOut:
+    h = np.float32(horizon)
+    x, t, dead, steps_d, leaps_d, ctr, ctr_hi, iters = call(
+        pool.x, pool.t, pool.dead.to(torch.int32),
+        pool.no_leap.to(torch.int32), pool.key, pool.ctr, pool.ctr_hi,
+        *tables[:6], rates, tables.gi, tables.rmask, h,
+        n_steps=chunk_steps * max_chunks, eps=eps, fallback=fallback)
+    return _window_out(pool, x, t, dead, steps_d, leaps_d, ctr, ctr_hi,
+                       iters, h, chunk_steps, max_chunks)
+
+
+def _exact_window_out(pool: LaneState, outs, h, chunk_steps: int,
+                      max_chunks: int) -> FusedWindowOut:
+    """`_window_out` for an exact kernel's (x, t, dead, steps, ctr,
+    ctr_hi): one counter block per active step, no leaps."""
     x, t, dead, steps_d, ctr, ctr_hi = outs
-    used = (to_words(ctr) - to_words(pool.ctr)) & MASK32  # active steps
+    used = (to_words(ctr) - to_words(pool.ctr)) & MASK32
+    return _window_out(pool, x, t, dead, steps_d, None, ctr, ctr_hi, used,
+                       h, chunk_steps, max_chunks)
+
+
+def _window_out(pool: LaneState, x, t, dead, steps_d, leaps_d, ctr, ctr_hi,
+                used, h, chunk_steps: int, max_chunks: int
+                ) -> FusedWindowOut:
+    """The new pool from a window kernel's outputs, with the reference's
+    chunk count (from `used`, each lane's active iterations) and
+    truncation flag. leaps_d None: the pool's leaps stay."""
     n_chunks = torch.clamp_max(
         (used.max() + chunk_steps - 1) // chunk_steps, max_chunks)
     truncated = ((t < float(h)) & (dead == 0)).any()
     t = torch.where(dead > 0, torch.clamp_min(t, float(h)), t)
     state = LaneState(x=x, t=t, key=pool.key, ctr=ctr, ctr_hi=ctr_hi,
-                      steps=pool.steps + steps_d, leaps=pool.leaps,
+                      steps=pool.steps + steps_d,
+                      leaps=pool.leaps if leaps_d is None
+                      else pool.leaps + leaps_d,
                       dead=dead > 0, no_leap=pool.no_leap)
     return FusedWindowOut(state=state, n_chunks=n_chunks,
                           truncated=truncated)

@@ -15,10 +15,25 @@ of `sparse_window_call` (`_sparse_window_kernel`): the CUDA kernel
 which seeds the carried propensities with
 `gillespie.initial_propensities` and loops `gillespie.sparse_ssa_step`.
 
+`tau_window_call` and `sparse_tau_window_call` run up to `n_steps`
+adaptive tau-leap iterations per lane — the ports of the reference's
+`tau_window_call` (`_tau_window_kernel`) and `sparse_tau_window_call`
+(`_sparse_tau_window_kernel`): the CUDA kernels
+`kernels/csrc/tau_window.cu` (S, R <= 64, reactant coefficients <= 4,
+tables in shared memory) and `kernels/csrc/sparse_tau_window.cu` (no
+caps), or on the CPU `tau_window_plain` / `sparse_tau_window_plain`,
+which loop `core.tau_leap.tau_step_core`. The two take the same
+operands (`core.tau_leap.TauTables` and the rates) and give the same
+bits on a system both accept; they differ in where the tables and the
+lane's arrays live, and in the comb unroll (MAX_COEF, or the system's
+`max_c`). Besides the pool they return each lane's count of active
+iterations, from which the chunk loop recovers the reference's chunk
+count (a tau iteration consumes a varying number of counter blocks).
+
 Kernel and twin give the same bits. Each wrapper's `.launches` counts
 its kernel launches (CPU calls do not count), so a run can show that
-its main path went through the kernel. Both libraries' kernels come
-from `kernels/build.py`.
+its main path went through the kernel. All the kernels come from one
+library built by `kernels/build.py`.
 """
 from __future__ import annotations
 
@@ -36,7 +51,9 @@ from repro_torch.core.gillespie import (
     sparse_ssa_step,
     ssa_step,
 )
-from repro_torch.core.reactions import MAX_REACTANTS
+from repro_torch.core.reactions import MAX_COEF, MAX_REACTANTS
+from repro_torch.core.stream import from_words, to_words
+from repro_torch.core.tau_leap import TauTables, lane_fallback, tau_step_core
 
 #: shape caps of the dense CUDA kernel (per-thread population array,
 #: shared memory tables); larger systems raise — run them with
@@ -262,3 +279,176 @@ def sparse_window_call(x, t, dead, key, ctr, ctr_hi, idx_pad, coef_pad,
 
 
 sparse_window_call.launches = 0
+
+
+def _tau_window_loop(x, t, dead, no_leap, key, ctr, ctr_hi, tables, rates,
+                     horizon, n_steps, eps, fallback):
+    """The tau twins' loop: up to n_steps `tau_step_core` iterations,
+    stopping once no lane is live (later iterations are no-ops)."""
+    h = torch.as_tensor(np.float32(horizon), device=x.device)
+    fb = lane_fallback(no_leap > 0, fallback)
+    k = to_words(key)
+    lo, hi = to_words(ctr), to_words(ctr_hi)
+    dl = dead > 0
+    zi = torch.zeros_like(dead)
+    steps, leaps, iters = zi, zi.clone(), zi.clone()
+    for _ in range(n_steps):
+        live = (t < h) & ~dl
+        if not bool(live.any()):
+            break
+        iters = iters + live.to(torch.int32)
+        x, t, dl, lo, hi, steps, leaps = tau_step_core(
+            x, t, dl, k[:, 0], k[:, 1], lo, hi, steps, leaps, tables, rates,
+            h, eps=eps, fallback=fb)
+    return (x, t, dl.to(torch.int32), steps, leaps, from_words(lo),
+            from_words(hi), iters)
+
+
+def tau_window_plain(x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef,
+                     col_j, col_v, row_idx, row_val, rates, gi, rmask,
+                     horizon, *, n_steps: int, eps: float, fallback: float):
+    """Plain torch twin of the dense tau kernel: `tau_step_core` with the
+    comb unroll to MAX_COEF, looped up to n_steps times. Same arguments
+    and results as `tau_window_call`."""
+    tables = TauTables(idx, coef, col_j, col_v, row_idx, row_val, gi, rmask,
+                       MAX_COEF)
+    return _tau_window_loop(x, t, dead, no_leap, key, ctr, ctr_hi, tables,
+                            rates, horizon, n_steps, eps, fallback)
+
+
+def sparse_tau_window_plain(x, t, dead, no_leap, key, ctr, ctr_hi, idx,
+                            coef, col_j, col_v, row_idx, row_val, rates, gi,
+                            rmask, horizon, *, n_steps: int, eps: float,
+                            fallback: float, max_c: int):
+    """Plain torch twin of the sparse tau kernel: `tau_step_core` with
+    the comb unroll to `max_c`. Same arguments and results as
+    `sparse_tau_window_call`."""
+    tables = TauTables(idx, coef, col_j, col_v, row_idx, row_val, gi, rmask,
+                       max_c)
+    return _tau_window_loop(x, t, dead, no_leap, key, ctr, ctr_hi, tables,
+                            rates, horizon, n_steps, eps, fallback)
+
+
+_TAU_ARGTYPES = ([_P] * 16 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                              ctypes.c_float, ctypes.c_float]
+                 + [ctypes.c_int] * 7)
+
+
+def _launch_tau(name, fn_name, args, horizon, n_steps, eps, fallback,
+                max_c, scratch: bool):
+    """Check the tau kernels' operands, launch `fn_name` and return its
+    eight fresh outputs (x, t, dead, steps, leaps, ctr, ctr_hi,
+    iterations). With `scratch` (the sparse kernel) the launch also gets
+    the lane's populations (S, B) and propensities and Poisson counts
+    (R, B), lanes minor, freed when this returns; the caching allocator
+    hands those blocks only to work queued after the launch on the same
+    stream."""
+    (x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef, col_j, col_v,
+     row_idx, row_val, rates, gi, rmask) = args
+    b, s = x.shape
+    r = idx.shape[0]
+    width, d, n_gi = col_j.shape[1], row_idx.shape[1], gi.shape[0]
+    if not 0 <= n_steps < 2 ** 31 or max_c < 1:
+        raise ValueError(f"{name}: bad static arguments n_steps={n_steps}, "
+                         f"max_c={max_c}")
+    if not (eps > 0 and fallback >= 0):
+        raise ValueError(f"{name}: need eps > 0 and fallback >= 0, got "
+                         f"eps={eps}, fallback={fallback}")
+    dev = x.device
+    check = partial(check_operand, name, device=dev)
+    _check_pool(check, x, t, dead, key, ctr, ctr_hi)
+    check("no_leap", no_leap, torch.int32, (b,))
+    check("idx", idx, torch.int32, (r, MAX_REACTANTS))
+    check("coef", coef, torch.int32, (r, MAX_REACTANTS))
+    check("col_j", col_j, torch.int32, (s, width))
+    check("col_v", col_v, torch.float32, (s, width))
+    check("row_idx", row_idx, torch.int32, (r + 1, d))
+    check("row_val", row_val, torch.float32, (r + 1, d))
+    per_lane = rates.ndim == 2
+    check("rates", rates, torch.float32, (b, r) if per_lane else (r,))
+    check("gi", gi, torch.float32, (n_gi, s))
+    check("rmask", rmask, torch.float32, (s,))
+    from repro_torch.kernels.build import load
+
+    fn = getattr(load(), fn_name)
+    fn.argtypes = _TAU_ARGTYPES + [_P] * ((3 if scratch else 0) + 8 + 1)
+    fn.restype = ctypes.c_int
+    outs = (torch.empty_like(x), torch.empty_like(t),
+            *(torch.empty_like(dead) for _ in range(3)),
+            torch.empty_like(ctr), torch.empty_like(ctr_hi),
+            torch.empty_like(dead))
+    work = [torch.empty((n, b), dtype=torch.float32, device=dev)
+            for n in ((s, r, r) if scratch else ())]
+    err = launch(fn, dev, *(a.data_ptr() for a in args), int(per_lane),
+                 float(np.float32(horizon)), int(n_steps),
+                 float(np.float32(eps)), float(np.float32(fallback)), b, s, r,
+                 width, d, n_gi, int(max_c), *(w.data_ptr() for w in work),
+                 *(o.data_ptr() for o in outs))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return outs
+
+
+def tau_window_call(x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef, col_j,
+                    col_v, row_idx, row_val, rates, gi, rmask, horizon, *,
+                    n_steps: int, eps: float, fallback: float):
+    """Run up to n_steps fused tau-leap iterations per lane toward
+    `horizon` through the dense kernel, whose comb unroll stops at
+    MAX_COEF (`core.tau_leap.tau_tables(sparse=False)` refuses larger
+    reactant coefficients).
+
+    Pool operands as `ssa_window_call`, plus no_leap (B,) int32 (nonzero:
+    the lane takes exact steps only). idx / coef (R, 4) int32; col_j /
+    col_v (S, L), row_idx / row_val (R+1, D), gi (G, S), rmask (S,):
+    `core.tau_leap.TauTables`; rates (R,) or (B, R) float32.
+    Returns (x, t, dead, steps_taken, leaps_taken, ctr, ctr_hi,
+    iterations) as new tensors, iterations counting each lane's active
+    iterations.
+    """
+    args = (x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef, col_j, col_v,
+            row_idx, row_val, rates, gi, rmask)
+    if x.device.type == "cpu":
+        return tau_window_plain(*args, horizon, n_steps=n_steps, eps=eps,
+                                fallback=fallback)
+    if x.device.type != "cuda":
+        raise ValueError(f"tau_window_call: unsupported device {x.device}")
+    s, r = x.shape[1], idx.shape[0]
+    if not (1 <= s <= MAX_S and 1 <= r <= MAX_R):
+        raise ValueError(
+            f"tau_window_call: the dense CUDA kernel takes 1 <= S <= "
+            f"{MAX_S} species and 1 <= R <= {MAX_R} reactions, got S={s}, "
+            f"R={r}; run larger systems with sparse=True")
+    outs = _launch_tau("tau_window_call", "tau_window_launch", args,
+                       horizon, n_steps, eps, fallback, MAX_COEF, False)
+    tau_window_call.launches += 1
+    return outs
+
+
+tau_window_call.launches = 0
+
+
+def sparse_tau_window_call(x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef,
+                           col_j, col_v, row_idx, row_val, rates, gi, rmask,
+                           horizon, *, n_steps: int, eps: float,
+                           fallback: float, max_c: int):
+    """`tau_window_call` through the sparse kernel: no S/R cap, the comb
+    unroll to `max_c` (at least the system's largest reactant
+    coefficient, as `core.tau_leap.tau_tables(sparse=True)` sets it).
+    The lane's populations, propensities and Poisson counts live in
+    scratch tensors on the card for the launch only."""
+    args = (x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef, col_j, col_v,
+            row_idx, row_val, rates, gi, rmask)
+    if x.device.type == "cpu":
+        return sparse_tau_window_plain(*args, horizon, n_steps=n_steps,
+                                       eps=eps, fallback=fallback,
+                                       max_c=max_c)
+    if x.device.type != "cuda":
+        raise ValueError(f"sparse_tau_window_call: unsupported device "
+                         f"{x.device}")
+    outs = _launch_tau("sparse_tau_window_call", "sparse_tau_window_launch",
+                       args, horizon, n_steps, eps, fallback, max_c, True)
+    sparse_tau_window_call.launches += 1
+    return outs
+
+
+sparse_tau_window_call.launches = 0

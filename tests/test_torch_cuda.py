@@ -1,7 +1,9 @@
 """The port on the card: each CUDA kernel (dense SSA window, sparse SSA
-window, Match) against its plain twin, the sparse kernel against the
-dense one, and the fused-kernel engine paths against the unfused ones,
-bit for bit on one device.
+window, Match, dense and sparse tau-leap windows) against its plain
+twin, the sparse kernels against the dense ones, the tau kernel with an
+unreachable leap threshold against the exact kernel, and the
+fused-kernel engine paths against the unfused ones, bit for bit on one
+device.
 
 Every test needs a CUDA device and nvcc and skips itself without them.
 The file imports neither JAX nor the reference package, so it runs
@@ -15,6 +17,7 @@ import torch
 
 import repro_torch.api as T
 from repro_torch.core import gillespie as tg
+from repro_torch.core import tau_leap as tt
 from repro_torch.core.cwc.compile import compile_model
 from repro_torch.core.cwc.models import MODELS, pentamer_system
 from repro_torch.core.reactions import sparse_tables
@@ -25,6 +28,8 @@ from repro_torch.kernels import ssa_step as tks
 HORIZON = {"lv8": 0.05, "ecoli": 10.0, "transport": 2.0, "ring8": 0.25,
            "coef5": 0.5}
 OUTS = ("x", "t", "dead", "steps", "ctr", "ctr_hi")
+TAU_OUTS = ("x", "t", "dead", "steps", "leaps", "ctr", "ctr_hi",
+            "iterations")
 
 
 def _system(name):
@@ -212,3 +217,134 @@ def test_cuda_simulate_kernel_path_matches_unfused(cuda, reduction):
         pf, pu = fused.per_point(), unfused.per_point()
         for f in ("n", "mean", "var", "ci90"):
             assert pf[f].tobytes() == pu[f].tobytes(), f
+
+
+def _tau_args(system, b, rates, device, sparse, no_leap=False):
+    """The pool and tau kernel operands of one window."""
+    pool = tg.init_lanes(system, b, 3, device=device)
+    tb = tt.tau_tables(system, sparse=sparse, device=device)
+    r = torch.as_tensor(system.rates if rates is None else rates,
+                        device=device)
+    nl = (torch.arange(b, device=device) % 2 if no_leap
+          else torch.zeros(b, device=device)).to(torch.int32)
+    return (pool.x, pool.t, pool.dead.to(torch.int32), nl, pool.key,
+            pool.ctr, pool.ctr_hi, *tb[:6], r, tb.gi, tb.rmask), tb.max_c
+
+
+def _assert_tau_bitwise(outs_a, outs_b, what):
+    for a, c, f in zip(outs_a, outs_b, TAU_OUTS):
+        if a.dtype == torch.float32:
+            a, c = a.view(torch.int32), c.view(torch.int32)
+        assert torch.equal(a, c), (what, f)
+
+
+@pytest.mark.cuda
+def test_cuda_tau_kernels_match_plain_twins(cuda):
+    """The dense and sparse tau-leap kernels against their plain twins,
+    bitwise: shared and per-lane rates, a half-set no_leap mask, a lower
+    leap threshold (ring8 leaps only below the default), a coefficient-5
+    system (sparse only) and a budget cut; the dense kernel refuses
+    shapes above its caps."""
+    rng = np.random.default_rng(3)
+    b = 4096
+    cases = [  # (model, per-lane rates, sparse, fallback, no_leap, steps)
+        ("lv8", False, False, 10.0, False, 4096),
+        ("lv8", True, False, 10.0, True, 4096),
+        ("ecoli", False, False, 10.0, False, 4096),
+        ("transport", True, False, 10.0, False, 4096),
+        ("lv8", False, False, 10.0, False, 16),
+        ("ring8", False, True, 3.0, False, 4096),
+        ("ring8", True, True, 3.0, True, 4096),
+        ("coef5", False, True, 3.0, False, 4096),
+        ("lv8", True, True, 10.0, False, 16),
+    ]
+    horizon = {"lv8": 0.3, "ecoli": 100.0, "transport": 2.0, "ring8": 0.5,
+               "coef5": 0.5}
+    leaps = 0
+    for name, per_lane, sparse, fb, no_leap, n_steps in cases:
+        ts = _system(name)
+        args, max_c = _tau_args(ts, b, _rates(ts, b, rng, per_lane), cuda,
+                                sparse, no_leap)
+        call, plain, static = (
+            (tks.sparse_tau_window_call, tks.sparse_tau_window_plain,
+             {"max_c": max_c}) if sparse else
+            (tks.tau_window_call, tks.tau_window_plain, {}))
+        kw = dict(n_steps=n_steps, eps=0.03, fallback=fb, **static)
+        before = call.launches
+        k = call(*args, horizon[name], **kw)
+        assert call.launches == before + 1
+        p = plain(*args, horizon[name], **kw)
+        torch.cuda.synchronize()
+        _assert_tau_bitwise(k, p, (name, per_lane, sparse))
+        leaps += int(k[4].sum())
+        live = (k[1] < horizon[name]) & (k[2] == 0)
+        assert bool(live.any()) == (n_steps == 16), name
+    assert leaps > 0
+    big = _system("lattice8x8")  # S = 256 > 64
+    args, _ = _tau_args(big, 8, None, cuda, False)
+    with pytest.raises(ValueError, match="sparse=True"):
+        tks.tau_window_call(*args, 0.1, n_steps=4, eps=0.03, fallback=10.0)
+
+
+@pytest.mark.cuda
+def test_cuda_tau_kernel_without_leaps_is_the_exact_kernel(cuda):
+    """tau_fallback = inf: the dense tau kernel never leaps and gives the
+    exact kernel's window, bit for bit, on lv8 (shared and per-lane
+    rates) and ecoli."""
+    rng = np.random.default_rng(4)
+    b = 4096
+    for name, per_lane in (("lv8", False), ("lv8", True), ("ecoli", False)):
+        ts = _system(name)
+        rates = _rates(ts, b, rng, per_lane)
+        args, _ = _tau_args(ts, b, rates, cuda, False)
+        tau = tks.tau_window_call(*args, HORIZON[name], n_steps=4096,
+                                  eps=0.03, fallback=float("inf"))
+        exact = tks.ssa_window_call(
+            *args[:3], *args[4:7], *tg.system_tensors(ts, rates, device=cuda),
+            HORIZON[name], n_steps=4096)
+        torch.cuda.synchronize()
+        assert int(tau[4].sum()) == 0
+        _assert_bitwise((tau[0], tau[1], tau[2], tau[3], tau[5], tau[6]),
+                        exact, name)
+        assert int(exact[3].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_tau_kernel_matches_dense_tau_kernel(cuda):
+    """The sparse tau kernel against the dense one on ecoli and lv8:
+    the same window, bit for bit, leaps included."""
+    for name, h in (("ecoli", 100.0), ("lv8", 0.3)):
+        ts = _system(name)
+        args, max_c = _tau_args(ts, 4096, None, cuda, True)
+        sparse = tks.sparse_tau_window_call(*args, h, n_steps=4096, eps=0.03,
+                                            fallback=10.0, max_c=max_c)
+        dense = tks.tau_window_call(*args, h, n_steps=4096, eps=0.03,
+                                    fallback=10.0)
+        torch.cuda.synchronize()
+        _assert_tau_bitwise(sparse, dense, name)
+        assert int(dense[4].sum()) > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [False, True])
+def test_cuda_simulate_tau_kernel_path_matches_unfused(cuda, sparse):
+    """simulate(method=TAU_LEAP) on the card: the tau kernel path (one
+    launch per window) against the unfused tau loop, records, telemetry
+    and final pool bit for bit."""
+    exp = T.Experiment(model=MODELS["lv8"](),
+                       ensemble=T.Ensemble.make(replicas=512),
+                       schedule=T.Schedule(t_end=0.6, n_windows=3),
+                       n_lanes=128, seed=6, method=T.Method.TAU_LEAP,
+                       sparse=sparse)
+    call = tks.sparse_tau_window_call if sparse else tks.tau_window_call
+    before = call.launches
+    fused = T.simulate(exp.with_(use_kernel=True))  # default device
+    assert call.launches == before + 3
+    unfused = T.simulate(exp, device=cuda)
+    for a, b in zip(fused.records, unfused.records):
+        for f in ("mean", "var", "ci90"):
+            assert getattr(a, f).tobytes() == getattr(b, f).tobytes(), f
+    for f in ("steps_per_window", "leaps_per_window"):
+        assert getattr(fused.telemetry, f) == getattr(unfused.telemetry, f)
+    assert sum(fused.telemetry.leaps_per_window) > 0
+    assert (fused.final_state() == unfused.final_state()).all()
