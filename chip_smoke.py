@@ -8,17 +8,24 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (each prints its own lines; any failure exits non-zero):
 
 1. build   — compile the kernel library from every source under
-             `src/repro_torch/kernels/csrc` (one nvcc per source, all
-             started together, one link); print the seconds, ptxas's
-             report and the card's name and power limit.
+             `src/repro_torch/kernels/csrc` (one `nvcc -shared --threads
+             0` call over all of them, `kernels/build.py`); print the
+             seconds, ptxas's report and the card's name and power limit.
 2. kernels — hold each kernel bitwise against its plain torch twin on the
              card, printing the count of differing elements:
              the dense SSA window on lv8 (65,536 lanes, per-lane sweep
-             rates), ecoli, transport and a budget cut; the sparse SSA
-             window on ring80 (shared rates), lattice8x8 (per-lane
-             rates), ecoli (also against the dense kernel), a
-             coefficient-5 system and a budget cut; the Match kernel on
-             lv8 and ring80 with shared and per-lane rates; the dense
+             rates), ecoli, transport, a budget cut and a system with
+             reactant coefficients 3 and 4; the sparse SSA window on
+             ring80 (shared rates) and lattice8x8 (per-lane rates), both
+             with the carry on chip, ring256 (R = 1,792: the carry in
+             HBM; more lanes than its one-wave grid holds, so threads
+             take lanes from the ticket), ecoli (also against the dense
+             kernel), a coefficient-5 system, ring8 with one negative
+             rate in a sweep, a system whose propensities are all zero,
+             one whose reaction changes six species and a budget cut,
+             each naming its route and the lanes taken from the ticket;
+             the Match kernel on lv8 and ring80 with shared and per-lane
+             rates; the dense
              tau-leap window on lv8 (shared and per-lane rates, the
              latter with half the lanes pinned to exact steps), ecoli and
              transport, and with an unreachable leap threshold against
@@ -28,7 +35,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              simulate(Experiment(lv8, 2^20 replicas, use_kernel=True)).
 3b. sparse — the sparse main path at full width:
              simulate(Experiment(ring80, 2^18 replicas, sparse=True,
-             use_kernel=True)).
+             use_kernel=True)); then one window of ring256 at the same
+             width, the HBM route, timed alone (rerun bitwise).
 3c. match  — the Match entry point `kernels.ops.propensity` at full
              width on the populations that 3b ends with, shared and
              per-lane rates: launches (counter set to 0 just before),
@@ -48,11 +56,12 @@ Phases (each prints its own lines; any failure exits non-zero):
              exceed 2^24); a tau path must leap. Prints ms per window
              (CUDA events, after a warm-up window), events (tau: solver
              iterations and the leap share) per window, the longest lane
-             and the warp step-slot efficiency; for tau, the iterations
+             and the step-slot efficiency of 32 neighbouring lanes run in
+             lockstep; for tau, the iterations
              and the window times against the exact path's. Then times
              one full-width kernel launch against its plain twin on the
              same window, with the bound (and, for the sparse exact
-             kernel, the carry's traffic if it streams from HBM).
+             kernel, its route).
 4. report  — one JSON line of per-kernel numbers, the card line, then the
              result line.
 
@@ -92,6 +101,9 @@ SPARSE_WINDOWS = 8
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS = 132 * 128 * 1.98e9
 PEAK_I32_OPS = 67e12 / 4
+# rows between checkpoints of the sparse kernel's a0 fold
+# (kernels/csrc/sparse_step.cuh)
+CK_ROWS = 32
 
 
 def log(msg: str) -> None:
@@ -114,11 +126,50 @@ def cuda_ms(fn, reps: int = 1) -> float:
 
 
 def system_of(name):
-    from repro_torch.core.cwc.compile import compile_model
+    """A `MODELS` entry, or one of the phase-2 systems: "coef5" (the
+    coefficient-5 pentamer), "quartic" (reactant coefficients 3 and 4,
+    dense-capable), "inert" (every propensity zero from the start),
+    "wide" (a reaction that changes six species: the sparse kernel's
+    general update) and "ring256" (R = 1,792: the sparse kernel's carry
+    too large for shared memory)."""
+    from repro_torch.core.cwc.compile import cell_ring_model, compile_model
     from repro_torch.core.cwc.models import MODELS, pentamer_system
+    from repro_torch.core.reactions import make_system
 
-    return pentamer_system() if name == "coef5" else \
-        compile_model(MODELS[name]())[0]
+    if name == "coef5":
+        return pentamer_system()
+    if name == "quartic":
+        return make_system(
+            ["A", "B", "C"],
+            [({}, {"A": 1}, 20.0), ({"A": 3}, {"B": 1}, 2e-3),
+             ({"B": 4}, {"C": 1}, 1e-3), ({"A": 1, "B": 2}, {"C": 1}, 1e-4),
+             ({"C": 1}, {}, 0.1), ({"B": 1}, {}, 0.05)],
+            {"A": 50, "B": 20})
+    if name == "inert":
+        return make_system(["A", "B"], [({"A": 2}, {"B": 1}, 1.0),
+                                        ({"B": 1}, {}, 0.5)], {"A": 1})
+    if name == "wide":
+        return make_system(
+            ["A", "B", "C", "D", "E", "F"],
+            [({}, {"A": 1}, 5.0),
+             ({"A": 1}, {"B": 1, "C": 1, "D": 1, "E": 1, "F": 1}, 1.0),
+             ({"B": 1}, {}, 0.3), ({"C": 1, "D": 1}, {}, 0.01),
+             ({"E": 2}, {"F": 1}, 0.01), ({"F": 1}, {}, 0.2)], {"A": 10})
+    if name == "ring256":
+        return compile_model(cell_ring_model(256))[0]
+    return compile_model(MODELS[name]())[0]
+
+
+def negative_sweep(system, n_lanes, seed):
+    """`sweep_rates` with the rate of the first "dimerise1" reaction
+    negated in every lane: its propensity falls below 0 wherever its
+    comb factor is not, and the a0 fold's running sum is no longer
+    monotone (the sparse kernel must scan such a lane from row 0)."""
+    rates = sweep_rates(system, n_lanes, seed)
+    j = next(i for i, n in enumerate(system.reaction_names)
+             if n.startswith("dimerise1"))
+    rates[:, j] = -rates[:, j]
+    return rates
 
 
 def sweep_rates(system, n_lanes, seed):
@@ -145,7 +196,8 @@ def window_inputs(system, n_lanes, seed, per_lane_rates, device):
 
 def sparse_inputs(pool, sp, rates):
     """(sparse kernel argument tuple minus the horizon, static keyword
-    arguments) for one window of `pool`."""
+    arguments, the kernel's own bound operands as keyword arguments) for
+    one window of `pool`."""
     import torch
 
     from repro_torch.kernels.ops import bind_sparse_window
@@ -154,7 +206,8 @@ def sparse_inputs(pool, sp, rates):
     args = (pool.x, pool.t, pool.dead.to(torch.int32), pool.key, pool.ctr,
             pool.ctr_hi, *tb[:5])
     return args, dict(max_c=tb.max_c, d=tb.d, k=tb.k,
-                      packed_rates=tb.packed_rates)
+                      packed_rates=tb.packed_rates), dict(dep_lo=tb.dep_lo,
+                                                          packed=tb.packed)
 
 
 def tau_inputs(system, n_lanes, seed, per_lane_rates, sparse, device,
@@ -212,44 +265,59 @@ F_LOG, F_UNIFORMS, F_RESOLVE = 22, 4, 6
 I_STEP = 82
 
 
-def ops_per_step(system) -> tuple[int, int, int]:
-    """The least work the dense direct-method SSA needs, counted from
-    kernels/csrc/ssa_window.cu: (float32 instructions per active lane
-    step, float32 instructions per fired event, int32 instructions per
-    active lane step). An FMA counts 1.
-
-    Work the kernel repeats or hoists is left out: the Match is counted
-    once (the kernel's second pass for the scan is recomputation). The
-    scan and the update depend on the reaction that fires, which the run
-    does not record, so each fired event is charged their least: the
-    threshold multiply, one compare of the scan and the fewest nonzero
-    entries of a delta row."""
-    match = sum(slot_ops(row) for row in system.reactant_coef)
-    a0 = system.n_reactions - 1  # left-to-right sum
-    f_step = match + a0 + F_LOG + F_UNIFORMS + F_RESOLVE
-    nnz = int((system.delta != 0).sum(axis=1).min())
-    f_fired = 1 + 1 + nnz
-    return f_step, f_fired, I_STEP
-
-
-def sparse_ops(system, tables) -> tuple[int, int, int, int]:
-    """The least work of the sparse step, counted from
-    kernels/csrc/sparse_window.cu: (float32 instructions per active lane
-    step, per fired event, per lane for the seed, int32 per active lane
-    step). Per active step: the R-1 adds of a0, the log, the uniforms
-    and the resolve. Per fired event, the least over reactions j of: the
-    threshold multiply, the scan's one add and one compare, the adds of
-    j's nonzero delta entries, and the Match of j's dependency rows. The
-    seed is the Match of every reaction, once per lane and launch."""
+def dep_match(system, tables) -> list[int]:
+    """Float instructions of the Match of each reaction's dependency rows
+    (`slot_ops` of every row of dep(j)), by j."""
+    r = system.n_reactions
     coef = system.reactant_coef
-    f_step = system.n_reactions - 1 + F_LOG + F_UNIFORMS + F_RESOLVE
+    return [sum(slot_ops(coef[q]) for q in deps if q < r)
+            for deps in tables.dep_idx[:-1]]
+
+
+def ops_per_step(system, tables) -> dict:
+    """The least work the dense direct-method SSA with dependency-graph
+    updates needs, counted from kernels/csrc/ssa_window.cu: float32
+    instructions per active lane step (`step`: a0's R-1 adds, the log,
+    the uniforms, the resolve), per fired event (`fired`) and per lane
+    and launch (`seed`: the Match of every reaction), and int32
+    instructions per active lane step (`i_step`). An FMA counts 1.
+
+    The scan and the update depend on the reaction that fires, which the
+    run does not record, so each fired event is charged the least over j
+    of: the threshold multiply, one compare of the scan, the adds of j's
+    nonzero delta entries and the Match of j's dependency rows."""
     nnz = (system.delta != 0).sum(axis=1)
-    fired = min(
-        1 + 2 + int(nnz[j]) + sum(slot_ops(coef[r]) for r in deps
-                                  if r < system.n_reactions)
-        for j, deps in enumerate(tables.dep_idx[:-1]))
-    seed = sum(slot_ops(row) for row in coef)
-    return f_step, fired, seed, I_STEP
+    fired = min(2 + int(n) + m for n, m in zip(nnz, dep_match(system,
+                                                              tables)))
+    return dict(step=system.n_reactions - 1 + F_LOG + F_UNIFORMS + F_RESOLVE,
+                fired=fired,
+                seed=sum(slot_ops(row) for row in system.reactant_coef),
+                i_step=I_STEP)
+
+
+def sparse_ops(system, tables) -> dict:
+    """The least work of the sparse step, counted from
+    kernels/csrc/sparse_step.cuh: float32 instructions per active lane
+    step besides a0 (`step`: the log, the uniforms, the resolve), per
+    fired event (`fired`: the least over j of the threshold multiply, the
+    scan's one add and one compare, the adds of j's nonzero delta entries
+    and the Match of j's dependency rows) and per lane and launch
+    (`seed`: the Match of every reaction); a0's adds, R-1 for a lane's
+    first active step in a launch (`first_fold`) and, for every later
+    one, the refold from the checkpoint at or below the lowest row of
+    dep(j), least over j (`refold`); int32 per active lane step
+    (`i_step`)."""
+    import numpy as np
+
+    r = system.n_reactions
+    nnz = (system.delta != 0).sum(axis=1)
+    fired = min(3 + int(n) + m for n, m in zip(nnz, dep_match(system,
+                                                              tables)))
+    lo = np.minimum(tables.dep_idx[:-1].min(axis=1), r - 1)
+    refold = int((r - lo // CK_ROWS * CK_ROWS).min())
+    return dict(step=F_LOG + F_UNIFORMS + F_RESOLVE, fired=fired,
+                seed=sum(slot_ops(row) for row in system.reactant_coef),
+                first_fold=r - 1, refold=refold, i_step=I_STEP)
 
 
 #: float32 instructions of exp_f32 (2 clamps, floor, 2 more clamps, 8
@@ -365,6 +433,7 @@ def phase_kernels(device) -> dict:
         sparse_tau_window_plain,
         sparse_window_call,
         sparse_window_plain,
+        sparse_window_route,
         ssa_window_call,
         ssa_window_plain,
         tau_window_call,
@@ -393,6 +462,7 @@ def phase_kernels(device) -> dict:
         ("ecoli", False, 2.0, budget),
         ("transport", True, 2.0, budget),
         ("lv8", False, 0.5, 48),  # budget cut: lanes still live
+        ("quartic", True, 1.0, budget),  # coefficients 3, 4: __fdiv_rn
     ]
     for name, per_lane, horizon, n_steps in dense_cases:
         args = window_inputs(system_of(name), CHECK_LANES, CHECK_SEED,
@@ -402,26 +472,40 @@ def phase_kernels(device) -> dict:
         check("ssa_window", f"{name} B={CHECK_LANES} rates="
               f"{'(B,R)' if per_lane else '(R,)'}", k, p, horizon, n_steps)
 
-    sparse_cases = [  # (model, per-lane rates, horizon, n_steps)
-        ("ring80", False, 0.25, budget),
-        ("lattice8x8", True, 0.25, budget),
-        ("ecoli", False, 2.0, budget),
-        ("coef5", False, 0.5, budget),  # coefficient 5: sparse only
-        ("ring80", True, 0.25, 48),  # budget cut: lanes still live
+    sparse_cases = [  # (model, rates, horizon, n_steps, lanes)
+        ("ring80", "(R,)", 0.25, budget, CHECK_LANES),
+        ("lattice8x8", "(B,R)", 0.25, budget, CHECK_LANES),
+        ("ring256", "(R,)", 0.05, budget, CHECK_LANES),  # HBM route
+        ("ecoli", "(R,)", 2.0, budget, CHECK_LANES),
+        ("coef5", "(R,)", 0.5, budget, CHECK_LANES),  # sparse only
+        ("ring8", "negative", 0.25, budget, CHECK_LANES),
+        ("inert", "(R,)", 1.0, budget, CHECK_LANES),  # every lane dead
+        ("wide", "(B,R)", 2.0, budget, CHECK_LANES),  # D = 6 changes
+        ("ring80", "(B,R)", 0.25, 48, CHECK_LANES),  # budget cut
     ]
-    for name, per_lane, horizon, n_steps in sparse_cases:
+    for name, kind, horizon, n_steps, lanes in sparse_cases:
         system = system_of(name)
-        pool = init_lanes(system, CHECK_LANES, CHECK_SEED, device=device)
+        pool = init_lanes(system, lanes, CHECK_SEED, device=device)
         sp = sparse_system_tensors(sparse_tables(system), device=device)
         rates = torch.as_tensor(
-            sweep_rates(system, CHECK_LANES, CHECK_SEED) if per_lane
-            else system.rates, device=device)
-        args, static = sparse_inputs(pool, sp, rates)
-        k = sparse_window_call(*args, horizon, n_steps=n_steps, **static)
+            system.rates if kind == "(R,)" else
+            sweep_rates(system, lanes, CHECK_SEED) if kind == "(B,R)" else
+            negative_sweep(system, lanes, CHECK_SEED), device=device)
+        args, static, bound = sparse_inputs(pool, sp, rates)
+        k = sparse_window_call(*args, horizon, n_steps=n_steps, **bound,
+                               **static)
         p = sparse_window_plain(*args, horizon, n_steps=n_steps, **static)
+        ticket = lanes - sparse_window_call.grid_lanes
+        route, threads = sparse_window_route(system.n_reactions)
         label = (f"{name} S={system.n_species} R={system.n_reactions} "
-                 f"B={CHECK_LANES} rates={'(B,R)' if per_lane else '(R,)'}")
+                 f"B={lanes} rates={kind} route={route} ({threads} lanes "
+                 f"a block, {ticket} lanes from the ticket)")
         check("sparse_window", label, k, p, horizon, n_steps)
+        if name == "ring256" and not ticket:  # one wave held every lane
+            raise AssertionError("sparse_window: the HBM route's check "
+                                 "took no lane from the ticket")
+        if name == "inert" and int(k[2].sum()) != lanes:
+            raise AssertionError("sparse_window: inert lanes not all dead")
         if name == "ecoli":  # the sparse kernel against the dense one
             d = ssa_window_call(*args[:6], *system_tensors(system,
                                                            device=device),
@@ -536,8 +620,10 @@ def drive_main(exp, counter, label, device) -> tuple[dict, float]:
         work0 = eng._pool.steps if tau else eng._pool.ctr
         win_ms.append(cuda_ms(lambda: res.resume(max_windows=1)))
         # per-lane work this window, read outside the timed span: the
-        # longest lane, and the share of each warp's 32 x (longest lane)
-        # step slots that did work
+        # longest lane, and the share of the step slots that did work if
+        # each 32 neighbouring lanes ran as one warp to their longest
+        # lane (the tau kernels' mapping; the exact kernels hand lanes to
+        # warps dynamically, so for them this is the lockstep they avoid)
         work = eng._pool.steps if tau else eng._pool.ctr
         used = (work.long() - work0.long()) & 0xFFFFFFFF
         lane_max.append(int(used.max()))
@@ -566,7 +652,8 @@ def drive_main(exp, counter, label, device) -> tuple[dict, float]:
     log(f"[{label}] longest lane's {'steps' if tau else 'active steps'} per "
         f"window after warm-up: {lane_max} (budget "
         f"{exp.kernel_chunk_steps * exp.kernel_max_chunks}); warp "
-        f"step-slot efficiency {[round(e, 4) for e in warp_eff]}")
+        f"step-slot efficiency of 32 neighbouring lanes "
+        f"{[round(e, 4) for e in warp_eff]}")
     if launches != n_windows:
         raise AssertionError(f"{label}: {launches} kernel launches for "
                              f"{n_windows} windows")
@@ -620,7 +707,12 @@ def phase_main(device) -> dict:
 
     from repro_torch.api import Ensemble, Experiment, Schedule, build_engine
     from repro_torch.core.cwc.models import MODELS
-    from repro_torch.kernels.ssa_step import ssa_window_call, ssa_window_plain
+    from repro_torch.core.reactions import sparse_tables
+    from repro_torch.kernels.ssa_step import (
+        dense_dep_mask,
+        ssa_window_call,
+        ssa_window_plain,
+    )
 
     exp = Experiment(model=MODELS[MAIN_MODEL](),
                      ensemble=Ensemble.make(replicas=MAIN_REPLICAS),
@@ -643,11 +735,13 @@ def phase_main(device) -> dict:
         lambda: ssa_window_plain(*args, horizon, n_steps=n_steps))
     active = int(((out[4].long() - pool.ctr.long()) & 0xFFFFFFFF).sum())
     fired = int(out[3].sum())
-    f_step, f_fired, i_step = ops_per_step(eng.system)
+    ops = ops_per_step(eng.system, sparse_tables(eng.system))
     b, s = pool.x.shape
-    n_bytes = pool_bytes(b, s) + nbytes(idx, coef, delta, eng._rates_dev)
-    bound, by, detail = bound_of(n_bytes, active * f_step + fired * f_fired,
-                                 active * i_step)
+    n_bytes = pool_bytes(b, s) + nbytes(idx, coef, delta, eng._rates_dev,
+                                        dense_dep_mask(idx, coef, delta))
+    bound, by, detail = bound_of(
+        n_bytes, active * ops["step"] + fired * ops["fired"]
+        + b * ops["seed"], active * ops["i_step"])
     log(f"[main] one window at full width: kernel {k_ms:.3f} ms, plain "
         f"twin {p_ms:.1f} ms, 0 differing elements; {active} active lane "
         f"steps, {fired} events; bound {bound:.4f} ms ({detail}); the "
@@ -658,62 +752,103 @@ def phase_main(device) -> dict:
                 win_ms=nums["win_ms"])
 
 
-def phase_sparse(device) -> dict:
-    """The sparse main path at full width; returns the report numbers."""
+def sparse_experiment(model):
+    """The sparse main path's experiment (phase 3b) for `model`."""
+    from repro_torch.api import Ensemble, Experiment, Schedule
+
+    return Experiment(model=model,
+                      ensemble=Ensemble.make(replicas=SPARSE_REPLICAS),
+                      schedule=Schedule(t_end=SPARSE_T_END,
+                                        n_windows=SPARSE_WINDOWS),
+                      n_lanes=1024, sparse=True, use_kernel=True)
+
+
+def sparse_full_width(exp, label, device, twin: bool) -> dict:
+    """One full-width launch of the sparse kernel on window 2 of `exp`,
+    timed after a warm-up launch, with its bound, its route and the lanes
+    its grid took from the ticket; with `twin`, against its plain twin
+    (else against the warm-up launch, bit for bit)."""
     import numpy as np
 
-    from repro_torch.api import Ensemble, Experiment, Schedule, build_engine
-    from repro_torch.core.cwc.models import MODELS
+    from repro_torch.api import build_engine
     from repro_torch.core.reactions import sparse_tables
     from repro_torch.kernels.ssa_step import (
         sparse_window_call,
         sparse_window_plain,
+        sparse_window_route,
     )
 
-    exp = Experiment(model=MODELS[SPARSE_MODEL](),
-                     ensemble=Ensemble.make(replicas=SPARSE_REPLICAS),
-                     schedule=Schedule(t_end=SPARSE_T_END,
-                                       n_windows=SPARSE_WINDOWS),
-                     n_lanes=1024, sparse=True, use_kernel=True)
-    nums, win0_ms = drive_main(exp, sparse_window_call, "sparse", device)
-
-    # one full-width launch of a main-path window: kernel vs plain twin
     eng = build_engine(exp, device=device)
     eng.run_window()
     pool = eng._pool
-    args, static = sparse_inputs(pool, eng._sparse_tensors, eng._rates_dev)
+    args, static, bound = sparse_inputs(pool, eng._sparse_tensors,
+                                        eng._rates_dev)
     horizon = float(np.float32(eng.grid[1]))
     n_steps = exp.kernel_chunk_steps * exp.kernel_max_chunks
-    k_ms, p_ms, out, err = time_against_twin(
-        "sparse", lambda: sparse_window_call(*args, horizon,
-                                             n_steps=n_steps, **static),
-        lambda: sparse_window_plain(*args, horizon, n_steps=n_steps,
-                                    **static), reps=3)
-    active = int(((out[4].long() - pool.ctr.long()) & 0xFFFFFFFF).sum())
+
+    def launch():
+        return sparse_window_call(*args, horizon, n_steps=n_steps, **bound,
+                                  **static)
+
+    if twin:
+        k_ms, p_ms, out, err = time_against_twin(
+            label, launch, lambda: sparse_window_plain(
+                *args, horizon, n_steps=n_steps, **static), reps=3)
+        against = f"plain twin {p_ms:.1f} ms"
+    else:
+        first = launch()
+        k_ms = cuda_ms(launch)
+        out = launch()
+        n_diff, err = bitwise_diff(out, first)
+        if n_diff:
+            raise AssertionError(f"{label}: reruns of one window differ")
+        p_ms, against = None, "rerun"
+    ticket = pool.x.shape[0] - sparse_window_call.grid_lanes
+    used = (out[4].long() - pool.ctr.long()) & 0xFFFFFFFF
+    active, lanes_active = int(used.sum()), int((used > 0).sum())
     fired = int(out[3].sum())
     system = eng.system
-    f_step, f_fired, f_seed, i_step = sparse_ops(system,
-                                                 sparse_tables(system))
+    ops = sparse_ops(system, sparse_tables(system))
     b, s = pool.x.shape
     r = system.n_reactions
-    n_bytes = pool_bytes(b, s) + nbytes(*args[6:])
-    bound, by, detail = bound_of(
-        n_bytes, active * f_step + fired * f_fired + b * f_seed,
-        active * i_step)
-    carry_gb = active * r * 4 / 1e9
-    carry_ms = carry_gb * 1e9 / PEAK_BYTES_S * 1e3
-    log(f"[sparse] one window at full width: kernel {k_ms:.3f} ms, plain "
-        f"twin {p_ms:.1f} ms, 0 differing elements; {active} active lane "
-        f"steps, {fired} events; bound {bound:.4f} ms ({detail}); the "
-        f"same window took {win0_ms:.3f} ms end to end, kernel share "
-        f"{k_ms / win0_ms:.4f}")
-    log(f"[sparse] the carry's a0 reads if they stream from HBM: R x 4 B "
-        f"per active step = {carry_gb:.3f} GB, {carry_ms:.4f} ms at "
-        f"{PEAK_BYTES_S / 1e12:g} TB/s (the scan reads up to as much "
-        f"again)")
-    return dict(launches=nums["launches"], ms=k_ms, plain_ms=p_ms,
-                bound_ms=bound, bound_by=by, err=err, final_x=nums["final_x"],
-                system=system, steps=nums["steps"], win_ms=nums["win_ms"])
+    # the tables the kernel reads: rates, dep_lo, slots and recipes
+    n_bytes = pool_bytes(b, s) + nbytes(args[10], bound["dep_lo"],
+                                        *bound["packed"])
+    folds = (lanes_active * ops["first_fold"]
+             + (active - lanes_active) * ops["refold"])
+    bound_ms, by, detail = bound_of(
+        n_bytes, active * ops["step"] + folds + fired * ops["fired"]
+        + b * ops["seed"], active * ops["i_step"])
+    route, threads = sparse_window_route(r)
+    log(f"[{label}] S={s} R={r} B={b}, one window at full width: kernel "
+        f"{k_ms:.3f} ms, {against}, 0 differing elements; {active} active "
+        f"lane steps, {fired} events; bound {bound_ms:.4f} ms ({detail})")
+    log(f"[{label}] route {route}: {threads} lanes a block, each lane's "
+        f"carry ({r} propensities, {-(-r // CK_ROWS)} checkpoints) "
+        f"{'in shared memory' if route != 'hbm' else 'in HBM scratch'}; "
+        f"{ticket} of {b} lanes from the ticket; a0 refolds at least "
+        f"{ops['refold']} of {r} rows after an event")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by,
+                err=err, system=system)
+
+
+def phase_sparse(device) -> dict:
+    """The sparse main path at full width; returns the report numbers.
+    Then one full-width window of ring256, whose carry takes the HBM
+    route, timed alone."""
+    from repro_torch.core.cwc.compile import cell_ring_model
+    from repro_torch.core.cwc.models import MODELS
+    from repro_torch.kernels.ssa_step import sparse_window_call
+
+    exp = sparse_experiment(MODELS[SPARSE_MODEL]())
+    nums, win0_ms = drive_main(exp, sparse_window_call, "sparse", device)
+    one = sparse_full_width(exp, "sparse", device, twin=True)
+    log(f"[sparse] the same window took {win0_ms:.3f} ms end to end, "
+        f"kernel share {one['ms'] / win0_ms:.4f}")
+    sparse_full_width(sparse_experiment(cell_ring_model(256)),
+                      "sparse ring256", device, twin=False)
+    return dict(one, launches=nums["launches"], final_x=nums["final_x"],
+                steps=nums["steps"], win_ms=nums["win_ms"])
 
 
 def phase_match(device, x, system) -> dict:

@@ -34,6 +34,7 @@ from repro_torch.core.gillespie import (
     ssa_step,
 )
 from repro_torch.core.tau_leap import make_tau_step
+from repro_torch.kernels.ssa_step import dense_dep_mask
 from repro_torch.kernels.ops import (
     bind_sparse_window,
     sparse_tau_window_chunk_loop,
@@ -137,8 +138,12 @@ class FusedDispatch:
                                  fallback=cfg.tau_fallback)
             self._tables = tau
         elif sp is None:
-            self._loop = window_chunk_loop
-            self._tables = (*self.eng._tensors_base[:3], rates)
+            base = self.eng._tensors_base[:3]
+            # the kernel's dependency masks; the CPU twin reads none
+            self._loop = partial(
+                window_chunk_loop,
+                dep_mask=dense_dep_mask(*base) if rates.is_cuda else None)
+            self._tables = (*base, rates)
         else:
             self._loop = sparse_window_chunk_loop
             self._tables = bind_sparse_window(sp, rates)

@@ -7,166 +7,150 @@
 // carried across events and, after reaction j fires, only the rows of its
 // dependency list dep(j) are recomputed. It serves the networks the dense
 // kernel cannot hold (hundreds of species and reactions, or a reactant
-// coefficient above 4).
+// coefficient above 4). The lane's step is sparse_step.cuh: a seed per
+// lane and launch, an a0 fold that resumes at the checkpoint below the
+// rows that changed, a scan that counts checkpoints and refolds one block.
 //
-//   Seed    at launch every a[r] from x: rates first, slots in order, the
-//           comb unroll to the system's max_c (propensities are a pure
-//           function of x, so a seed per launch has the carried bits);
-//   Resolve a0 = left-to-right sum of the carry; threefry2x32 uniforms;
-//           tau = -log(u1) / max(a0, 1e-30); j = first r whose running
-//           sum reaches u2*a0 (0 when none);
-//   Update  x += the D entries of row j; recompute the K dep rows of j in
-//           the reference's slot order; a lane whose next event would
-//           cross the horizon freezes there; the counter advances once
-//           per active step.
+// Bound. On ring80 (R = 560) an event costs a fold of about 380 of the
+// 560 rows for the lane, and a warp walks the union of its lanes' blocks
+// (about all 18): one dependent float add per row, about 5 cycles each.
+// The carry must sit where those reads cost nothing more, so the kernel
+// has two routes, chosen by the wrapper from the shape before the launch
+// (`ssa_step.sparse_window_route`, named in chip_smoke.py's output):
 //
-// Layout. The lane's populations live in its row of the output `x_out`
-// (global memory): S runs to hundreds, too many for registers. The carry
-// is a scratch tensor laid out (R+1, B), lanes minor, so the 32 lanes of a
-// warp read one 128-byte line per reaction in the a0 sum and the scan; row
-// R takes the writes of pad dep entries and is never read. The packed
-// recipe rows (int_tab, flt_tab: `gillespie.bind_sparse_step`) are read
-// through the read-only cache. Shared rates come packed in flt_tab (and,
-// for the seed, as the (R+1,) rates operand); per-lane rates are read from
-// the (B, R+1) operand.
+//   shared  each lane's region (checkpoints, then the carry padded with
+//           zeros to whole blocks of 32 rows) in dynamic shared memory, as
+//           many lanes a block (a multiple of 32, at most 128) as fit the
+//           227 KB: 96 at R = 560, one block per SM. The populations stay
+//           in the lane's row of x_out, read through L1 and L2. This
+//           route holds R up to 1,728;
+//   hbm     larger systems: the same regions in an HBM scratch tensor.
+//
+// Keeping the populations in shared memory too would leave 32 lanes a
+// block at R = 560, 64 on lattice8x8; a trial of that layout was slower
+// than this route on both. At three warps an SM
+// the step is latency bound, one warp on each of three schedulers: the
+// design keeps every chain short and every load early. The fold reads
+// float4 words a block ahead of its adds; the scan's compares are
+// independent counts; an event's recipe (one packed table row) and the
+// next step's draws overlap, and every population read of an event is
+// issued before any write.
+//
+// Persistent lanes: the grid is one wave; a warp takes 32 new lanes from
+// an atomic ticket once all of its lanes have stopped, so no block waits
+// for its slowest warp. A thread does not take a lane of its own:
+// re-seeding R rows while the warp's other 31 threads wait would cost
+// more than the lockstep it saves (warp step-slot efficiency is 0.89 on
+// ring80). Per-lane bits are unchanged: lanes are independent and every
+// output is written per lane.
 //
 // Bits. Explicit `_rn` intrinsics and the port's `log_f32` from
-// ssa_common.cuh; the a0 sum and the scan run left to right.
+// ssa_common.cuh; the a0 fold and the scan run left to right, and the
+// checkpoints repeat the same rounded adds (sparse_step.cuh).
 //
-// Bound: for a large network, bytes of the carry, not ALU work. Each
-// active step reads R carried floats for a0 and up to j+1 more for the
-// scan. At R = 560 that is over 2 KB a step, which the 50 MB L2 cannot
-// hold for a whole ensemble, so the carry streams from HBM. The kernel is
-// the simple, correct form: keeping the carry on chip (shared memory
-// tiles, a partial-sum tree) is later work.
+// Build: kernels/build.py (sm_90a, one library with the other kernels).
+// C interface, bound by ctypes.
 
-#include "ssa_common.cuh"
+#include "sparse_step.cuh"
 
 namespace {
 
-__global__ void sparse_window_kernel(
-    const float* __restrict__ x, const float* __restrict__ t,
-    const int* __restrict__ dead, const uint32_t* __restrict__ key,
-    const uint32_t* __restrict__ ctr, const uint32_t* __restrict__ ctr_hi,
-    const int* __restrict__ idx_pad, const int* __restrict__ coef_pad,
-    const int* __restrict__ int_tab, const float* __restrict__ flt_tab,
-    const float* __restrict__ rates_pad, int rates_per_lane, float horizon,
-    int n_steps, int B, int S, int R, int M, int D, int K, int max_c,
-    float* __restrict__ carry, float* __restrict__ x_out,
-    float* __restrict__ t_out, int* __restrict__ dead_out,
-    int* __restrict__ steps_out, uint32_t* __restrict__ ctr_out,
-    uint32_t* __restrict__ ctr_hi_out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  const int wi = D + K + K * M;
-  const int wf = D + K * M + (rates_per_lane ? 0 : K);
-  const float* rate =
-      rates_per_lane ? rates_pad + (size_t)lane * (R + 1) : rates_pad;
-  float* xl = x_out + (size_t)lane * S;
-  float* a = carry + lane;  // a[r * B]: reaction r of this lane
-  for (int s = 0; s < S; ++s) xl[s] = x[(size_t)lane * S + s];
-
-  for (int r = 0; r < R; ++r) {
-    float v = __ldg(rate + r);
-    for (int m = 0; m < M; ++m) {
-      const int c = __ldg(coef_pad + r * M + m);
-      if (c > 0) {  // a slot with c == 0 contributes exactly 1
-        v = __fmul_rn(v, ssa::comb_factor(xl[__ldg(idx_pad + r * M + m)], c,
-                                          max_c));
-      }
-    }
-    a[(size_t)r * B] = v;
+// ON_CHIP: each thread's region (`rows` floats: checkpoints and carry) in
+// shared memory, else in p.scratch. The populations live in the lane's
+// row of x_out.
+template <bool ON_CHIP, int MAXC>
+__global__ void sparse_window_kernel(sparse::Params p) {
+  extern __shared__ float4 smem4[];
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gtid >= p.n_slots) return;
+  float* region = ON_CHIP ? reinterpret_cast<float*>(smem4) +
+                                (size_t)threadIdx.x * p.rows
+                          : p.scratch + (size_t)gtid * p.rows;
+  for (int lane = gtid; lane < p.B;
+       lane = p.n_slots + ssa::take_lane(p.ticket)) {
+    const float* xl = p.x + (size_t)lane * p.S;
+    float* xs = p.x_out + (size_t)lane * p.S;
+    for (int s = 0; s < p.S; ++s) xs[s] = xl[s];
+    sparse::run_lane<MAXC, ON_CHIP>(p, lane, xs, region);
   }
-
-  float tl = t[lane];
-  bool dl = dead[lane] > 0;
-  const uint32_t k0 = key[2 * (size_t)lane];
-  const uint32_t k1 = key[2 * (size_t)lane + 1];
-  uint32_t c_lo = ctr[lane];
-  uint32_t c_hi = ctr_hi[lane];
-  int steps = 0;
-
-  // a lane that is not live stays so: its remaining steps are no-ops
-  for (int it = 0; it < n_steps && tl < horizon && !dl; ++it) {
-    float a0 = 0.0f;
-    for (int r = 0; r < R; ++r) a0 = __fadd_rn(a0, a[(size_t)r * B]);
-    const bool now_dead = a0 <= 0.0f;
-    uint32_t b0, b1;
-    ssa::threefry2x32(k0, k1, c_lo, c_hi, b0, b1);
-    const float u1 = ssa::bits_to_uniform(b0);
-    const float u2 = ssa::bits_to_uniform(b1);
-    const float t_next = __fadd_rn(tl, ssa::waiting_time(u1, a0));
-    if (!now_dead && t_next <= horizon) {
-      const float thresh = __fmul_rn(u2, a0);
-      int j = 0;  // first true, 0 when none (the reference's argmax)
-      float cum = 0.0f;
-      for (int r = 0; r < R; ++r) {
-        cum = __fadd_rn(cum, a[(size_t)r * B]);
-        if (cum >= thresh) {
-          j = r;
-          break;
-        }
-      }
-      const int* it_row = int_tab + (size_t)j * wi;
-      const float* ft_row = flt_tab + (size_t)j * wf;
-      for (int q = 0; q < D; ++q) {  // pads index S: dropped
-        const int s = __ldg(it_row + q);
-        if (s < S) xl[s] = __fadd_rn(xl[s], __ldg(ft_row + q));
-      }
-      for (int kk = 0; kk < K; ++kk) {  // pad entries R hit the junk row
-        const int rr = __ldg(it_row + D + kk);
-        float v = rates_per_lane ? __ldg(rate + rr)
-                                 : __ldg(ft_row + D + K * M + kk);
-        for (int m = 0; m < M; ++m) {
-          const int c = (int)__ldg(ft_row + D + kk * M + m);
-          if (c > 0) {
-            const int s = __ldg(it_row + D + K + kk * M + m);
-            v = __fmul_rn(v, ssa::comb_factor(xl[s], c, max_c));
-          }
-        }
-        a[(size_t)rr * B] = v;
-      }
-      tl = t_next;
-      ++steps;
-    } else {
-      // dead, or the next event would cross: freeze at the horizon
-      tl = horizon;
-      dl = now_dead;
-    }
-    c_lo += 1u;
-    c_hi += (c_lo == 0u) ? 1u : 0u;
-  }
-
-  t_out[lane] = tl;
-  dead_out[lane] = dl ? 1 : 0;
-  steps_out[lane] = steps;
-  ctr_out[lane] = c_lo;
-  ctr_hi_out[lane] = c_hi;
 }
 
 }  // namespace
 
+// One wave of blocks (or fewer, when the lanes run out first), each
+// thread with one region: on chip, `threads` regions of p0.rows floats a
+// block; in HBM, the first n_slots regions of p0.scratch.
+template <bool ON_CHIP, int MAXC>
+static int launch(const sparse::Params& p0, int threads, int* grid_lanes,
+                  cudaStream_t stream) {
+  auto kernel = sparse_window_kernel<ON_CHIP, MAXC>;
+  const size_t smem =
+      ON_CHIP ? (size_t)p0.rows * threads * sizeof(float) : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long cap = ON_CHIP ? p0.B : p0.n_slots;  // lanes, or HBM regions
+  const long wave = (long)n_sm * per_sm;
+  const long need = (cap + threads - 1) / threads;
+  const int blocks = (int)(need < wave ? need : wave);
+  sparse::Params p = p0;
+  const long taken = (long)blocks * threads;
+  p.n_slots = (int)(taken < cap ? taken : cap);
+  *grid_lanes = p.n_slots;
+  kernel<<<blocks, threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// slots (R+1, 4) and recipe (R+1, W) int32 from `ssa_step.sparse_recipe`;
+// rows: floats of a lane's region (a multiple of 4, at least the padded
+// checkpoints and carry). Route 0: regions in `scratch`, (n_slots, rows)
+// float32; route 1: in shared memory. `threads` lanes a block. ticket:
+// one int32, zero. grid_lanes (host): set to the lanes the grid takes
+// first, one per thread; the others come from the ticket. Returns a CUDA
+// error code (0 on success).
 extern "C" int sparse_window_launch(
     const void* x, const void* t, const void* dead, const void* key,
-    const void* ctr, const void* ctr_hi, const void* idx_pad,
-    const void* coef_pad, const void* int_tab, const void* flt_tab,
-    const void* rates_pad, int rates_per_lane, float horizon, int n_steps,
-    int B, int S, int R, int M, int D, int K, int max_c, void* carry,
-    void* x_out, void* t_out, void* dead_out, void* steps_out,
-    void* ctr_out, void* ctr_hi_out, void* stream) {
+    const void* ctr, const void* ctr_hi, const void* slots,
+    const void* recipe, const void* rates_pad, const void* dep_lo,
+    int rates_per_lane, float horizon, int n_steps, int B, int S, int R,
+    int W, int D, int K, int max_c, int route, int threads, int rows,
+    int n_slots, void* scratch, void* ticket, int* grid_lanes,
+    void* x_out, void* t_out,
+    void* dead_out, void* steps_out, void* ctr_out, void* ctr_hi_out,
+    void* stream) {
   if (B <= 0) return 0;
-  if (S < 1 || R < 1 || M < 1 || D < 1 || K < 1 || max_c < 1) {
+  const int need = sparse::ck_rows(R) + sparse::carry_rows(R);
+  if (S < 1 || R < 1 || D < 1 || K < 1 || max_c < 1 || threads < 32 ||
+      threads % 32 != 0 || route < 0 || route > 1 || rows < need ||
+      rows % 4 != 0 || W != 4 * ((2 * D + 3) / 4) + 8 * K ||
+      grid_lanes == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  sparse_window_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  sparse::Params p{
       (const float*)x, (const float*)t, (const int*)dead,
       (const uint32_t*)key, (const uint32_t*)ctr, (const uint32_t*)ctr_hi,
-      (const int*)idx_pad, (const int*)coef_pad, (const int*)int_tab,
-      (const float*)flt_tab, (const float*)rates_pad, rates_per_lane,
-      horizon, n_steps, B, S, R, M, D, K, max_c, (float*)carry,
-      (float*)x_out, (float*)t_out, (int*)dead_out, (int*)steps_out,
-      (uint32_t*)ctr_out, (uint32_t*)ctr_hi_out);
-  return (int)cudaGetLastError();
+      (const int4*)slots, (const int4*)recipe, (const float*)rates_pad,
+      (const int*)dep_lo, rates_per_lane, horizon, n_steps, B, S, R, D, K,
+      max_c, rows, (float*)scratch, n_slots, (int*)ticket, (float*)x_out,
+      (float*)t_out, (int*)dead_out, (int*)steps_out, (uint32_t*)ctr_out,
+      (uint32_t*)ctr_hi_out};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (route == 1) {
+    // on chip, the comb unroll as a constant 2 for systems whose
+    // coefficients are at most 2 (every model of the repository but the
+    // pentamer): 6% off ring80's window. The HBM route, paced by its
+    // scratch, gains nothing from it (PERF.md).
+    return max_c <= 2 ? launch<true, 2>(p, threads, grid_lanes, st)
+                      : launch<true, 0>(p, threads, grid_lanes, st);
+  }
+  if (n_slots < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<false, 0>(p, threads, grid_lanes, st);
 }

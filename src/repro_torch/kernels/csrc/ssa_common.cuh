@@ -3,7 +3,8 @@
 // one spelling of the random stream, the logarithm, the exponential, the
 // Poisson sampler and the combination counts, so every kernel draws and
 // rounds as the plain torch twins do (repro_torch/core/stream.py,
-// mathf.py, reactions.py, tau_leap.py).
+// mathf.py, reactions.py, tau_leap.py); and the exact windows' lane
+// columns and persistent-lane ticket.
 //
 // Every float operation is an explicitly rounded intrinsic (`_rn`), so
 // nvcc's default --fmad=true cannot contract a multiply into an add; the
@@ -121,15 +122,20 @@ __device__ __forceinline__ void ctr_add(uint32_t lo, uint32_t hi,
 // it: the falling factorial p (p-1) ... over c!, unrolled to max_c
 // (iterations past c keep the running values). A caller passing a
 // constant max_c (the dense kernels' MAX_COEF) gets the loop fully
-// unrolled.
+// unrolled. Operations are skipped where the result is exact without
+// them: for c = 1, 1 * max(p - 0, 0) is max(p, 0) for every p; ff / 2
+// and ff * 0.5 are the same real number rounded once (ff is never NaN:
+// every factor is max(., 0) of a non-NaN p - i).
 __device__ __forceinline__ float comb_factor(float p, int c, int max_c) {
+  if (c == 1) return fmaxf(p, 0.0f);
   float ff = 1.0f;
-  float fact = 1.0f;
   for (int i = 0; i < max_c; ++i) {
-    if (c > i) {
-      ff = __fmul_rn(ff, fmaxf(__fsub_rn(p, (float)i), 0.0f));
-      fact = __fmul_rn(fact, (float)(i + 1));
-    }
+    if (c > i) ff = __fmul_rn(ff, fmaxf(__fsub_rn(p, (float)i), 0.0f));
+  }
+  if (c == 2) return __fmul_rn(ff, 0.5f);
+  float fact = 2.0f;  // c!, exact in float32
+  for (int i = 2; i < max_c; ++i) {
+    if (c > i) fact = __fmul_rn(fact, (float)(i + 1));
   }
   return __fdiv_rn(ff, fact);
 }
@@ -137,6 +143,33 @@ __device__ __forceinline__ float comb_factor(float p, int c, int max_c) {
 // exponential waiting time of the direct method: -log(u1) / max(a0, 1e-30)
 __device__ __forceinline__ float waiting_time(float u1, float a0) {
   return __fdiv_rn(-log_f32(u1), fmaxf(a0, 0x1.4484cp-100f));
+}
+
+// One lane's column of a store laid out lanes minor, STRIDE lanes wide:
+// element i at p[i * STRIDE]. A warp's 32 threads on 32 neighbouring
+// columns of shared memory read 32 distinct banks whatever row each of
+// them reads (STRIDE a multiple of 32); a constant stride makes every
+// row's offset an immediate.
+template <int STRIDE>
+struct Column {
+  float* p;
+  __device__ __forceinline__ float& operator[](int i) const {
+    return p[i * STRIDE];
+  }
+};
+
+// Persistent lanes: the next ticket of a counter that starts at 0 (the
+// caller adds the lanes the grid took first). Threads of a warp that ask
+// together share one atomic and take consecutive tickets. Needs a block
+// width that is a multiple of 32.
+__device__ __forceinline__ int take_lane(int* ticket) {
+  const unsigned act = __activemask();
+  const int me = threadIdx.x & 31;
+  const int leader = __ffs(act) - 1;
+  int base = 0;
+  if (me == leader) base = atomicAdd(ticket, __popc(act));
+  base = __shfl_sync(act, base, leader);
+  return base + __popc(act & ((1u << me) - 1u));
 }
 
 }  // namespace ssa

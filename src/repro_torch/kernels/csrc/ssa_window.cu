@@ -4,11 +4,17 @@
 // (driven there by `repro/kernels/ops.py::window_chunk_loop`). Each lane
 // runs up to `n_steps` direct-method events toward `horizon`:
 //
-//   Match   rates-first products of C(n, c), the populations gathered by
-//           reactant index (the reference's one-hot matmul gives the same
-//           bits on integer-valued float32 populations);
+//   Match   once per lane and launch: every propensity, rates first, the
+//           products of C(n, c) over the populations gathered by reactant
+//           index (the reference's one-hot matmul gives the same bits on
+//           integer-valued float32 populations). After reaction j fires,
+//           only the rows of dep(j) are recomputed, from a bit mask per
+//           reaction (`ssa_step.dense_dep_mask`): every other propensity is a
+//           pure function of populations j did not change, so its carried
+//           value has the bits a recomputation would give;
 //   Resolve threefry2x32 uniforms from the lane's (key, counter) stream,
-//           tau = -log(u1) / max(a0, 1e-30), first r with cumsum >= u2*a0;
+//           tau = -log(u1) / max(a0, 1e-30) with a0 the left-to-right fold
+//           of the carried propensities, first r with cumsum >= u2*a0;
 //   Update  x += delta[j]; a lane whose next event would cross the horizon
 //           freezes there; the counter advances once per active step.
 //
@@ -22,18 +28,29 @@
 // Bits. The stream, `log_f32` and the comb factors come from
 // ssa_common.cuh, shared with the other kernels: explicitly rounded
 // intrinsics only, never CUDA's logf. Sums over reactions run left to
-// right. The propensities are computed twice per event (once for
-// a0, once for the scan) so no per-lane R array is needed; recomputation
-// gives the same bits.
+// right.
 //
-// Bound: ALU work, not bytes. Per window a lane reads and writes about
-// 62 bytes of pool state, against a few hundred integer and float
-// operations for each of its hundreds to thousands of events (20 threefry
-// rounds, the log polynomial, two Match passes, the scan, the update).
-// The system tables (reactant index and coefficient, delta, and the rates
-// when every lane shares them) sit in shared memory; the lane's
-// populations live in a per-thread array that the reactant gather indexes,
-// which puts it in local memory (L1-resident).
+// Bound: instructions per step, not bytes (a lane reads and writes about
+// 62 bytes of pool state per window against hundreds to thousands of
+// events). Per event: threefry's 20 rounds, the log polynomial, the fold
+// and the scan over R carried values, the S-wide update and the dep(j)
+// rows' Match (2.8 rows of 9 on lv8), with no division where the comb
+// factor is exact without one (c <= 2). The lane's populations and
+// propensities sit in shared memory, (S + R) rows x 128 lanes, lanes
+// minor: the reactant gather indexes them, which would put a per-thread
+// array in local memory; as columns, a warp's 32 reads of any rows hit 32
+// distinct banks, and the constant stride makes each row's offset an
+// immediate (ptxas: 40 registers, no stack, no spills). The system tables
+// (reactant index and coefficient, delta, the masks, and the rates when
+// every lane shares them) sit in shared memory too.
+//
+// Persistent lanes: the grid is one wave. A thread whose lane stops
+// writes it out and takes the next lane from an atomic ticket in the same
+// loop the other threads step in, so a warp does not idle while its
+// longest lane runs on (warp step-slot efficiency fell to 0.34-0.73 on lv8
+// once populations crash and lanes die at different times). A new lane
+// costs its seed Match, about one step. Per-lane bits are unchanged: lanes
+// are independent and every output is written per lane.
 //
 // Build: kernels/build.py (sm_90a, one library with the other kernels).
 // C interface, bound by ctypes.
@@ -42,87 +59,147 @@
 
 #define SSA_MAX_S 64
 #define SSA_MAX_R 64
-#define SSA_MAX_REACTANTS 4
 #define SSA_MAX_COEF 4
 
+constexpr int kLanes = 128;  // threads (lanes) a block
 namespace {
 
-// rates-first propensity of reaction r: rate * C(n_0, c_0) * ... in slot
-// order; a slot with c == 0 contributes exactly 1 and is skipped
-__device__ __forceinline__ float propensity(int r, const float* xs,
-                                            const int* s_idx,
-                                            const int* s_coef, float rate) {
-  float a = rate;
-#pragma unroll
-  for (int m = 0; m < SSA_MAX_REACTANTS; ++m) {
-    const int c = s_coef[r * SSA_MAX_REACTANTS + m];
-    if (c > 0) {
-      const float p = xs[s_idx[r * SSA_MAX_REACTANTS + m]];
-      a = __fmul_rn(a, ssa::comb_factor(p, c, SSA_MAX_COEF));
-    }
-  }
-  return a;
+using Lanes = ssa::Column<kLanes>;
+
+struct Params {
+  const float* x;
+  const float* t;
+  const int* dead;
+  const uint32_t* key;
+  const uint32_t* ctr;
+  const uint32_t* ctr_hi;
+  const int* idx;      // (R, 4) reactant species, S at pads
+  const int* coef;     // (R, 4) reactant coefficients, 0 at pads
+  const float* delta;  // (R, S)
+  const float* rates;  // (R,) shared or (B, R) per lane
+  const unsigned long long* dep_mask;  // (R,) bit r: r in dep(j)
+  int rates_per_lane;
+  float horizon;
+  int n_steps, B, S, R;
+  int slots;    // lanes the grid takes first (one per thread)
+  int* ticket;  // persistent lanes: the next lane is slots + ticket
+  float* x_out;
+  float* t_out;
+  int* dead_out;
+  int* steps_out;
+  uint32_t* ctr_out;
+  uint32_t* ctr_hi_out;
+};
+
+// one reactant slot of a product; a slot with c == 0 contributes exactly
+// 1 and is skipped
+__device__ __forceinline__ float slot(float a, const Lanes& xs, int s,
+                                      int c) {
+  return c > 0 ? __fmul_rn(a, ssa::comb_factor(xs[s], c, SSA_MAX_COEF)) : a;
 }
 
-__global__ void ssa_window_kernel(
-    const float* __restrict__ x, const float* __restrict__ t,
-    const int* __restrict__ dead, const uint32_t* __restrict__ key,
-    const uint32_t* __restrict__ ctr, const uint32_t* __restrict__ ctr_hi,
-    const int* __restrict__ idx, const int* __restrict__ coef,
-    const float* __restrict__ delta, const float* __restrict__ rates,
-    int rates_per_lane, float horizon, int n_steps, int B, int S, int R,
-    float* __restrict__ x_out, float* __restrict__ t_out,
-    int* __restrict__ dead_out, int* __restrict__ steps_out,
-    uint32_t* __restrict__ ctr_out, uint32_t* __restrict__ ctr_hi_out) {
-  extern __shared__ int smem[];
-  int* s_idx = smem;
-  int* s_coef = s_idx + R * SSA_MAX_REACTANTS;
-  float* s_delta = reinterpret_cast<float*>(s_coef + R * SSA_MAX_REACTANTS);
+// rates-first propensity of reaction r: rate * C(n_0, c_0) * ... in slot
+// order
+__device__ __forceinline__ float propensity(int r, const Lanes& xs,
+                                            const int4* s_idx,
+                                            const int4* s_coef,
+                                            const float* rate) {
+  const int4 id = s_idx[r];
+  const int4 cf = s_coef[r];
+  float a = rate[r];
+  a = slot(a, xs, id.x, cf.x);
+  a = slot(a, xs, id.y, cf.y);
+  a = slot(a, xs, id.z, cf.z);
+  return slot(a, xs, id.w, cf.w);
+}
+
+// shared memory: idx, coef (R int4 each), masks (R u64), delta (R*S),
+// shared rates (R), then the lanes' columns: x (S rows), a (R rows)
+__host__ __device__ __forceinline__ size_t table_bytes(int S, int R) {
+  return (size_t)R * (2 * sizeof(int4) + sizeof(unsigned long long)) +
+         (size_t)R * S * sizeof(float) + (size_t)R * sizeof(float);
+}
+
+__global__ void ssa_window_kernel(Params p) {
+  extern __shared__ int4 smem[];
+  const int S = p.S, R = p.R;
+  int4* s_idx = smem;
+  int4* s_coef = s_idx + R;
+  unsigned long long* s_mask =
+      reinterpret_cast<unsigned long long*>(s_coef + R);
+  float* s_delta = reinterpret_cast<float*>(s_mask + R);
   float* s_rates = s_delta + R * S;
-  for (int i = threadIdx.x; i < R * SSA_MAX_REACTANTS; i += blockDim.x) {
-    s_idx[i] = idx[i];
-    s_coef[i] = coef[i];
+  float* s_lanes = s_rates + R;
+  for (int i = threadIdx.x; i < R; i += blockDim.x) {
+    s_idx[i] = make_int4(p.idx[4 * i], p.idx[4 * i + 1], p.idx[4 * i + 2],
+                         p.idx[4 * i + 3]);
+    s_coef[i] = make_int4(p.coef[4 * i], p.coef[4 * i + 1],
+                          p.coef[4 * i + 2], p.coef[4 * i + 3]);
+    s_mask[i] = p.dep_mask[i];
+    if (!p.rates_per_lane) s_rates[i] = p.rates[i];
   }
-  for (int i = threadIdx.x; i < R * S; i += blockDim.x) s_delta[i] = delta[i];
-  if (!rates_per_lane) {
-    for (int i = threadIdx.x; i < R; i += blockDim.x) s_rates[i] = rates[i];
+  for (int i = threadIdx.x; i < R * S; i += blockDim.x) {
+    s_delta[i] = p.delta[i];
   }
   __syncthreads();
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  const float* rate = rates_per_lane ? rates + (size_t)lane * R : s_rates;
+  const Lanes xs{s_lanes + threadIdx.x};
+  const Lanes a{s_lanes + S * kLanes + threadIdx.x};
+  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= p.B) return;
 
-  float xs[SSA_MAX_S + 1];
-  for (int s = 0; s < S; ++s) xs[s] = x[(size_t)lane * S + s];
-  xs[S] = 1.0f;
-  float tl = t[lane];
-  bool dl = dead[lane] > 0;
-  const uint32_t k0 = key[2 * (size_t)lane];
-  const uint32_t k1 = key[2 * (size_t)lane + 1];
-  uint32_t c_lo = ctr[lane];
-  uint32_t c_hi = ctr_hi[lane];
-  int steps = 0;
+  const float* rate = nullptr;
+  float tl = 0.0f;
+  bool dl = false;
+  uint32_t k0 = 0, k1 = 0, c_lo = 0, c_hi = 0;
+  int steps = 0, it = 0;
+  bool fresh = true;  // `lane` is to be loaded and seeded
 
-  // a lane that is not live stays so: its remaining steps are no-ops
-  for (int it = 0; it < n_steps && tl < horizon && !dl; ++it) {
-    float a0 = 0.0f;
-    for (int r = 0; r < R; ++r) {
-      a0 = __fadd_rn(a0, propensity(r, xs, s_idx, s_coef, rate[r]));
+  for (;;) {
+    if (fresh) {
+      fresh = false;
+      for (int s = 0; s < S; ++s) xs[s] = p.x[(size_t)lane * S + s];
+      rate = p.rates_per_lane ? p.rates + (size_t)lane * R : s_rates;
+      for (int r = 0; r < R; ++r) {
+        a[r] = propensity(r, xs, s_idx, s_coef, rate);
+      }
+      tl = p.t[lane];
+      dl = p.dead[lane] > 0;
+      k0 = p.key[2 * (size_t)lane];
+      k1 = p.key[2 * (size_t)lane + 1];
+      c_lo = p.ctr[lane];
+      c_hi = p.ctr_hi[lane];
+      steps = 0;
+      it = 0;
     }
+    // a lane that is not live stays so: its remaining steps are no-ops
+    if (it >= p.n_steps || !(tl < p.horizon) || dl) {
+      for (int s = 0; s < S; ++s) p.x_out[(size_t)lane * S + s] = xs[s];
+      p.t_out[lane] = tl;
+      p.dead_out[lane] = dl ? 1 : 0;
+      p.steps_out[lane] = steps;
+      p.ctr_out[lane] = c_lo;
+      p.ctr_hi_out[lane] = c_hi;
+      lane = p.slots + ssa::take_lane(p.ticket);
+      if (lane >= p.B) break;
+      fresh = true;
+      continue;
+    }
+    ++it;
+    float a0 = 0.0f;
+    for (int r = 0; r < R; ++r) a0 = __fadd_rn(a0, a[r]);
     const bool now_dead = a0 <= 0.0f;
     uint32_t b0, b1;
     ssa::threefry2x32(k0, k1, c_lo, c_hi, b0, b1);
     const float u1 = ssa::bits_to_uniform(b0);
     const float u2 = ssa::bits_to_uniform(b1);
-    const float tau = ssa::waiting_time(u1, a0);
-    const float t_next = __fadd_rn(tl, tau);
-    if (!now_dead && t_next <= horizon) {
+    const float t_next = __fadd_rn(tl, ssa::waiting_time(u1, a0));
+    if (!now_dead && t_next <= p.horizon) {
       const float thresh = __fmul_rn(u2, a0);
       int j = 0;  // first true, 0 when none (the reference's argmax)
       float cum = 0.0f;
       for (int r = 0; r < R; ++r) {
-        cum = __fadd_rn(cum, propensity(r, xs, s_idx, s_coef, rate[r]));
+        cum = __fadd_rn(cum, a[r]);
         if (cum >= thresh) {
           j = r;
           break;
@@ -130,48 +207,64 @@ __global__ void ssa_window_kernel(
       }
       const float* d = s_delta + j * S;
       for (int s = 0; s < S; ++s) xs[s] = __fadd_rn(xs[s], d[s]);
+      for (unsigned long long m = s_mask[j]; m != 0ull; m &= m - 1ull) {
+        const int r = __ffsll((long long)m) - 1;
+        a[r] = propensity(r, xs, s_idx, s_coef, rate);
+      }
       tl = t_next;
       ++steps;
     } else {
       // dead, or the next event would cross: freeze at the horizon
-      tl = horizon;
+      tl = p.horizon;
       dl = now_dead;
     }
     c_lo += 1u;
     c_hi += (c_lo == 0u) ? 1u : 0u;
   }
-
-  for (int s = 0; s < S; ++s) x_out[(size_t)lane * S + s] = xs[s];
-  t_out[lane] = tl;
-  dead_out[lane] = dl ? 1 : 0;
-  steps_out[lane] = steps;
-  ctr_out[lane] = c_lo;
-  ctr_hi_out[lane] = c_hi;
 }
 
 }  // namespace
 
+// idx / coef (R, 4) int32; delta (R, S) float32; rates (R,) or (B, R);
+// dep_mask (R,) int64; ticket: one int32, zero. Returns a CUDA error code
+// (0 on success).
 extern "C" int ssa_window_launch(
     const void* x, const void* t, const void* dead, const void* key,
     const void* ctr, const void* ctr_hi, const void* idx, const void* coef,
-    const void* delta, const void* rates, int rates_per_lane, float horizon,
-    int n_steps, int B, int S, int R, void* x_out, void* t_out,
-    void* dead_out, void* steps_out, void* ctr_out, void* ctr_hi_out,
-    void* stream) {
+    const void* delta, const void* rates, const void* dep_mask,
+    int rates_per_lane, float horizon, int n_steps, int B, int S, int R,
+    void* ticket, void* x_out, void* t_out, void* dead_out, void* steps_out,
+    void* ctr_out, void* ctr_hi_out, void* stream) {
   if (B <= 0) return 0;
   if (S < 1 || S > SSA_MAX_S || R < 1 || R > SSA_MAX_R) {
     return (int)cudaErrorInvalidValue;
   }
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  const size_t smem = (size_t)R * SSA_MAX_REACTANTS * 2 * sizeof(int) +
-                      (size_t)R * S * sizeof(float) + (size_t)R * sizeof(float);
-  ssa_window_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)t, (const int*)dead,
-      (const uint32_t*)key, (const uint32_t*)ctr, (const uint32_t*)ctr_hi,
-      (const int*)idx, (const int*)coef, (const float*)delta,
-      (const float*)rates, rates_per_lane, horizon, n_steps, B, S, R,
-      (float*)x_out, (float*)t_out, (int*)dead_out, (int*)steps_out,
-      (uint32_t*)ctr_out, (uint32_t*)ctr_hi_out);
+  const int threads = kLanes;
+  const size_t smem =
+      table_bytes(S, R) + (size_t)(S + R) * threads * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssa_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, ssa_window_kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long wave = (long)n_sm * per_sm;
+  const long need = (B + threads - 1) / threads;
+  const int blocks = (int)(need < wave ? need : wave);
+  Params p{(const float*)x, (const float*)t, (const int*)dead,
+           (const uint32_t*)key, (const uint32_t*)ctr,
+           (const uint32_t*)ctr_hi, (const int*)idx, (const int*)coef,
+           (const float*)delta, (const float*)rates,
+           (const unsigned long long*)dep_mask, rates_per_lane, horizon,
+           n_steps, B, S, R, blocks * threads, (int*)ticket,
+           (float*)x_out, (float*)t_out, (int*)dead_out, (int*)steps_out,
+           (uint32_t*)ctr_out, (uint32_t*)ctr_hi_out};
+  ssa_window_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

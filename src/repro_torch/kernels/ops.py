@@ -33,6 +33,7 @@ from repro_torch.core.stream import MASK32, to_words
 from repro_torch.core.tau_leap import TauTables
 from repro_torch.kernels.propensity import propensity_call
 from repro_torch.kernels.ssa_step import (
+    sparse_recipe,
     sparse_tau_window_call,
     sparse_window_call,
     ssa_window_call,
@@ -66,20 +67,22 @@ class FusedWindowOut(NamedTuple):
 
 def window_chunk_loop(pool: LaneState, tensors, horizon,
                       chunk_steps: int = DEFAULT_CHUNK_STEPS,
-                      max_chunks: int = DEFAULT_MAX_CHUNKS
-                      ) -> FusedWindowOut:
+                      max_chunks: int = DEFAULT_MAX_CHUNKS, *,
+                      dep_mask=None) -> FusedWindowOut:
     """Advance every lane of `pool` to `horizon` through one
     `ssa_window_call` with the whole window's event budget.
 
     tensors: (idx, coef, delta, rates) as `gillespie.system_tensors`
-    gives them. horizon: a float (rounded to float32).
+    gives them. horizon: a float (rounded to float32). dep_mask: the
+    kernel's `ssa_step.dense_dep_mask(idx, coef, delta)`, bound once per
+    run by the caller (derived per launch when None).
     """
     idx, coef, delta, rates = tensors
     h = np.float32(horizon)
     outs = ssa_window_call(
         pool.x, pool.t, pool.dead.to(torch.int32), pool.key, pool.ctr,
         pool.ctr_hi, idx, coef, delta, rates, h,
-        n_steps=chunk_steps * max_chunks)
+        n_steps=chunk_steps * max_chunks, dep_mask=dep_mask)
     return _exact_window_out(pool, outs, h, chunk_steps, max_chunks)
 
 
@@ -87,7 +90,11 @@ class SparseWindowTables(NamedTuple):
     """The sparse kernel's table operands for one set of rates
     (`bind_sparse_window`): idx_pad / coef_pad (R+1, M) seed the carry,
     int_tab / flt_tab are `gillespie.bind_sparse_step`'s recipe rows,
-    rates_pad is (R+1,) shared or (B, R+1) per lane."""
+    rates_pad is (R+1,) shared or (B, R+1) per lane; the kernel's own:
+    dep_lo (R+1,) int32, the lowest row of each dep(j) (R where dep(j) is
+    empty, and for the pad row: the a0 fold resumes at the checkpoint
+    below it), and `ssa_step.sparse_recipe`'s packed (slot_tab, recipe),
+    None off the card."""
 
     idx_pad: torch.Tensor
     coef_pad: torch.Tensor
@@ -98,6 +105,8 @@ class SparseWindowTables(NamedTuple):
     d: int
     k: int
     packed_rates: bool  # shared rates: the dep rows' rates sit in flt_tab
+    dep_lo: torch.Tensor
+    packed: tuple | None
 
 
 def bind_sparse_window(sp, rates) -> SparseWindowTables:
@@ -106,10 +115,15 @@ def bind_sparse_window(sp, rates) -> SparseWindowTables:
     between runs, so a caller binds once and reuses the result for
     every window."""
     int_tab, flt_tab, rates2d, max_c, d, k, _ = bind_sparse_step(sp, rates)
+    rates_pad = pad_rates(rates) if rates2d is None else rates2d
+    # only the kernel reads the packed tables: the card's tensors get them
+    packed = (sparse_recipe(sp[0], sp[1], int_tab, flt_tab, d=d, k=k,
+                            packed_rates=rates2d is None)
+              if int_tab.is_cuda else None)
     return SparseWindowTables(
-        sp[0], sp[1], int_tab, flt_tab,
-        pad_rates(rates) if rates2d is None else rates2d, max_c, d, k,
-        rates2d is None)
+        sp[0], sp[1], int_tab, flt_tab, rates_pad, max_c, d, k,
+        rates2d is None, sp[2].amin(dim=1).to(torch.int32).contiguous(),
+        packed)
 
 
 def sparse_window_chunk_loop(pool: LaneState, tables: SparseWindowTables,
@@ -124,7 +138,8 @@ def sparse_window_chunk_loop(pool: LaneState, tables: SparseWindowTables,
         pool.x, pool.t, pool.dead.to(torch.int32), pool.key, pool.ctr,
         pool.ctr_hi, *tables[:5], h, n_steps=chunk_steps * max_chunks,
         max_c=tables.max_c, d=tables.d, k=tables.k,
-        packed_rates=tables.packed_rates)
+        packed_rates=tables.packed_rates, dep_lo=tables.dep_lo,
+        packed=tables.packed)
     return _exact_window_out(pool, outs, h, chunk_steps, max_chunks)
 
 

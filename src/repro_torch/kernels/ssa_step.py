@@ -61,10 +61,15 @@ from repro_torch.core.tau_leap import TauTables, lane_fallback, tau_step_core
 MAX_S = 64
 MAX_R = 64
 
+#: dynamic shared memory one block may hold on Hopper (227 KB)
+SMEM_BLOCK_BYTES = 232_448
+#: a checkpoint of the sparse kernel's a0 fold every CK_ROWS rows
+CK_ROWS = 32
+
 _P = ctypes.c_void_p
-_ARGTYPES = ([_P] * 10 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+_ARGTYPES = ([_P] * 11 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int]
-             + [_P] * 6 + [_P])
+             + [_P] * 7 + [_P])
 
 
 def ssa_window_plain(x, t, dead, key, ctr, ctr_hi, idx, coef, delta, rates,
@@ -127,14 +132,37 @@ def _pool_outputs(x, t, dead, ctr, ctr_hi):
             torch.empty_like(ctr_hi))
 
 
+def dense_dep_mask(idx, coef, delta) -> torch.Tensor:
+    """The dense kernel's dependency graph for the tables idx / coef
+    (R, 4) and delta (R, S), R <= 64, on delta's device: (R,) int64 whose
+    bit r of entry j is set iff r is in dep(j), i.e. reaction r has a
+    reactant (coefficient > 0) that j changes (`reactions.sparse_tables`'
+    dep lists). A caller binds it with the tables, not per window."""
+    idx, coef, dl = (np.asarray(a.cpu()) for a in (idx, coef, delta))
+    r, s = dl.shape
+    if r > MAX_R:
+        raise ValueError(f"dense_dep_mask: the dense CUDA kernel takes R <= "
+                         f"{MAX_R} reactions, got R={r}; run larger systems "
+                         f"with sparse=True")
+    reads = np.zeros((r, s + 1), bool)  # column S takes the pads
+    np.logical_or.at(reads, (np.arange(r)[:, None], idx), coef > 0)
+    dep = ((dl != 0).astype(np.int64)
+           @ reads[:, :s].T.astype(np.int64)) > 0  # (j, r)
+    bits = (dep.astype(np.uint64)
+            << np.arange(r, dtype=np.uint64)).sum(axis=1, dtype=np.uint64)
+    return torch.from_numpy(bits.view(np.int64)).to(delta.device)
+
+
 def ssa_window_call(x, t, dead, key, ctr, ctr_hi, idx, coef, delta, rates,
-                    horizon, *, n_steps: int):
+                    horizon, *, n_steps: int, dep_mask=None):
     """Run up to n_steps fused SSA events per lane toward `horizon`.
 
     x: (B, S) float32; t: (B,) float32; dead: (B,) int32; key: (B, 2)
     int32 bits; ctr / ctr_hi: (B,) int32 bits; idx / coef: (R, 4)
     int32 reactant tables; delta: (R, S) float32; rates: (R,) shared or
-    (B, R) per lane, float32; horizon: a float (rounded to float32).
+    (B, R) per lane, float32; horizon: a float (rounded to float32);
+    dep_mask: `dense_dep_mask(idx, coef, delta)`, derived here when None
+    (the twin does not read it).
     Returns (x, t, dead, steps_taken, ctr, ctr_hi) as new tensors.
     """
     if x.device.type == "cpu":
@@ -159,17 +187,21 @@ def ssa_window_call(x, t, dead, key, ctr, ctr_hi, idx, coef, delta, rates,
     check("delta", delta, torch.float32, (r, s))
     per_lane = rates.ndim == 2
     check("rates", rates, torch.float32, (b, r) if per_lane else (r,))
+    if dep_mask is None:
+        dep_mask = dense_dep_mask(idx, coef, delta)
+    check("dep_mask", dep_mask, torch.int64, (r,))
     from repro_torch.kernels.build import load
 
     fn = load().ssa_window_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     outs = _pool_outputs(x, t, dead, ctr, ctr_hi)
+    ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
     err = launch(fn, dev,
                  *(a.data_ptr() for a in (x, t, dead, key, ctr, ctr_hi, idx,
-                                          coef, delta, rates)),
+                                          coef, delta, rates, dep_mask)),
                  int(per_lane), float(np.float32(horizon)), int(n_steps),
-                 b, s, r, *(o.data_ptr() for o in outs))
+                 b, s, r, ticket.data_ptr(), *(o.data_ptr() for o in outs))
     if err != 0:
         raise RuntimeError(f"ssa_window kernel launch failed: CUDA error "
                            f"{err}")
@@ -208,14 +240,79 @@ def sparse_window_plain(x, t, dead, key, ctr, ctr_hi, idx_pad, coef_pad,
             st.ctr_hi)
 
 
-_SPARSE_ARGTYPES = ([_P] * 11 + [ctypes.c_int, ctypes.c_float]
-                    + [ctypes.c_int] * 8 + [_P] * 7 + [_P])
+_SPARSE_ARGTYPES = ([_P] * 10 + [ctypes.c_int, ctypes.c_float]
+                    + [ctypes.c_int] * 12 + [_P] * 9 + [_P])
+
+
+def sparse_lane_rows(r: int) -> int:
+    """Floats of one lane's region in the sparse kernel: the
+    ceil(R/CK_ROWS) checkpoints padded to a multiple of 4, then the R
+    carried propensities padded with zeros to whole blocks of CK_ROWS;
+    one more float4 when that makes the count of float4 words even (an
+    odd count puts the float4 reads of a quarter-warp's lanes in distinct
+    banks)."""
+    blocks = -(-r // CK_ROWS)
+    rows = (blocks + 3) // 4 * 4 + blocks * CK_ROWS
+    return rows + 4 if rows // 4 % 2 == 0 else rows
+
+
+def _lanes_per_block(rows: int) -> int:
+    """The most lanes (a multiple of 32, at most 128) whose regions of
+    `rows` floats fit one block's shared memory; 0 if not 32."""
+    return min(128, SMEM_BLOCK_BYTES // (4 * rows) // 32 * 32)
+
+
+def sparse_window_route(r: int) -> tuple[str, int]:
+    """Where the sparse kernel keeps each lane's carry (R propensities
+    and ceil(R/CK_ROWS) checkpoints of the a0 fold), chosen from the
+    number of reactions R: (route, lanes per block).
+
+    "shared": the carry in shared memory, taken whenever 32 lanes'
+    carries fit one block (R up to 1,728). "hbm": the carry in an HBM
+    scratch tensor, 128 lanes per block: larger systems. The populations
+    stay in x_out either way."""
+    lanes = _lanes_per_block(sparse_lane_rows(r))
+    return ("shared", lanes) if lanes else ("hbm", 128)
+
+
+def sparse_recipe(idx_pad, coef_pad, int_tab, flt_tab, *, d: int, k: int,
+                  packed_rates: bool):
+    """The sparse kernel's packed tables, from the twin's: (slot_tab
+    (R+1, 4), recipe (R+1, W)) int32, W = 4 ceil(2D/4) + 8K.
+
+    A packed slot is species | coefficient << 24 (0 for an empty slot).
+    Recipe row j: j's delta entries as (species, value bits) pairs,
+    padded with (S, 0) to a multiple of 4 words (S: the pad row's delta
+    species), then per dep row 8 words: the reaction (R at pads), its
+    rate's bits (shared rates; 0 per lane), 2 zeros and its 4 packed
+    slots. Pure layout: every value is one the twin's tables hold."""
+    r1, m = idx_pad.shape
+    if (m != MAX_REACTANTS or int(coef_pad.max()) >= 128
+            or int(idx_pad.max()) >= 1 << 24):
+        raise ValueError(f"sparse_recipe: needs M={MAX_REACTANTS} slots, "
+                         f"coefficients < 128 and S < 2^24")
+    slot_tab = torch.where(coef_pad > 0, idx_pad | (coef_pad << 24),
+                           torch.zeros_like(idx_pad))
+    dp = -(-2 * d // 4) * 4
+    pairs = torch.full((r1, dp), 0, dtype=torch.int32, device=idx_pad.device)
+    pairs[:, 0::2] = int_tab[-1:, :1]  # the pad row: species S
+    pairs[:, 0:2 * d:2] = int_tab[:, :d]
+    pairs[:, 1:2 * d:2] = flt_tab[:, :d].contiguous().view(torch.int32)
+    dep = int_tab[:, d:d + k].long()
+    group = torch.zeros((r1, k, 8), dtype=torch.int32, device=idx_pad.device)
+    group[:, :, 0] = dep
+    if packed_rates:
+        group[:, :, 1] = flt_tab[:, d + k * m:].contiguous().view(
+            torch.int32)
+    group[:, :, 4:] = slot_tab[dep]
+    return (slot_tab.contiguous(),
+            torch.cat([pairs, group.reshape(r1, 8 * k)], dim=1).contiguous())
 
 
 def sparse_window_call(x, t, dead, key, ctr, ctr_hi, idx_pad, coef_pad,
                        int_tab, flt_tab, rates_pad, horizon, *,
                        n_steps: int, max_c: int, d: int, k: int,
-                       packed_rates: bool):
+                       packed_rates: bool, dep_lo=None, packed=None):
     """Run up to n_steps sparse SSA events per lane toward `horizon`.
 
     Pool operands as `ssa_window_call`. idx_pad / coef_pad: (R+1, M)
@@ -223,10 +320,16 @@ def sparse_window_call(x, t, dead, key, ctr, ctr_hi, idx_pad, coef_pad,
     (R+1, D+K+K·M) int32 and flt_tab (R+1, D+K·M[+K]) float32 from
     `gillespie.bind_sparse_step` (`packed_rates`: its rates2d was None,
     the dep-row rates sit in flt_tab); rates_pad (R+1,) shared or
-    (B, R+1) per lane, float32 (`gillespie.pad_rates`).
+    (B, R+1) per lane, float32 (`gillespie.pad_rates`). The kernel's own
+    bound operands, derived here when None (`ops.bind_sparse_window`
+    binds them once per run): dep_lo (R+1,) int32, the lowest row of
+    each dep(j); packed, `sparse_recipe`'s (slot_tab, recipe). The twin
+    reads neither. The route is `sparse_window_route(R)`'s.
     Returns (x, t, dead, steps_taken, ctr, ctr_hi) as new tensors. On
-    the card the carried propensities live in an (R+1, B) scratch
-    tensor that lives for the launch only.
+    the "hbm" route the carried propensities live in a scratch tensor
+    that lives for the launch only. After a launch,
+    `sparse_window_call.grid_lanes` holds the lanes its grid took first
+    (one per thread); the rest came from the ticket.
     """
     if x.device.type == "cpu":
         return sparse_window_plain(
@@ -238,13 +341,16 @@ def sparse_window_call(x, t, dead, key, ctr, ctr_hi, idx_pad, coef_pad,
                          f"{x.device}")
     b, s = x.shape
     r1, m = idx_pad.shape
+    r = r1 - 1
     per_lane = rates_pad.ndim == 2
     if packed_rates == per_lane:
         raise ValueError("sparse_window_call: packed_rates must be True "
                          "exactly when rates_pad is shared (R+1,)")
-    if not 0 <= n_steps < 2 ** 31 or max_c < 1 or d < 1 or k < 1:
+    if not (0 <= n_steps < 2 ** 31 and max_c >= 1 and d >= 1 and k >= 1
+            and m == MAX_REACTANTS):
         raise ValueError(f"sparse_window_call: bad static arguments "
-                         f"n_steps={n_steps}, max_c={max_c}, d={d}, k={k}")
+                         f"n_steps={n_steps}, max_c={max_c}, d={d}, k={k}, "
+                         f"M={m} (the kernel takes M={MAX_REACTANTS})")
     dev = x.device
     check = partial(check_operand, "sparse_window_call", device=dev)
     _check_pool(check, x, t, dead, key, ctr, ctr_hi)
@@ -255,30 +361,56 @@ def sparse_window_call(x, t, dead, key, ctr, ctr_hi, idx_pad, coef_pad,
           (r1, d + k * m + (0 if per_lane else k)))
     check("rates_pad", rates_pad, torch.float32,
           (b, r1) if per_lane else (r1,))
+    if dep_lo is None:
+        dep_lo = int_tab[:, d:d + k].amin(dim=1).contiguous()
+    if packed is None:
+        packed = sparse_recipe(idx_pad, coef_pad, int_tab, flt_tab, d=d,
+                               k=k, packed_rates=packed_rates)
+    slot_tab, recipe = packed
+    width = -(-2 * d // 4) * 4 + 8 * k
+    check("dep_lo", dep_lo, torch.int32, (r1,))
+    check("slot_tab", slot_tab, torch.int32, (r1, MAX_REACTANTS))
+    check("recipe", recipe, torch.int32, (r1, width))
+    route, threads = sparse_window_route(r)
+    rows = sparse_lane_rows(r)
     from repro_torch.kernels.build import load
 
     fn = load().sparse_window_launch
     fn.argtypes = _SPARSE_ARGTYPES
     fn.restype = ctypes.c_int
-    # freed when this returns; the caching allocator hands the block
-    # only to work queued after the launch on the same stream
-    carry = torch.empty((r1, b), dtype=torch.float32, device=dev)
+    n_slots, scratch = 0, None
+    if route == "hbm":
+        # one region per thread of the grid, freed when this returns;
+        # the caching allocator hands the block only to work queued
+        # after the launch on the same stream
+        props = torch.cuda.get_device_properties(dev)
+        n_slots = min(b, props.multi_processor_count * getattr(
+            props, "max_threads_per_multi_processor", 2048))
+        scratch = torch.empty((n_slots, rows), dtype=torch.float32,
+                              device=dev)
+    ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+    grid_lanes = ctypes.c_int(0)
     outs = _pool_outputs(x, t, dead, ctr, ctr_hi)
     err = launch(fn, dev,
                  *(a.data_ptr() for a in (x, t, dead, key, ctr, ctr_hi,
-                                          idx_pad, coef_pad, int_tab,
-                                          flt_tab, rates_pad)),
+                                          slot_tab, recipe, rates_pad,
+                                          dep_lo)),
                  int(per_lane), float(np.float32(horizon)), int(n_steps), b,
-                 s, r1 - 1, m, d, k, int(max_c), carry.data_ptr(),
+                 s, r, width, d, k, int(max_c), int(route == "shared"),
+                 threads, rows, n_slots,
+                 0 if scratch is None else scratch.data_ptr(),
+                 ticket.data_ptr(), ctypes.addressof(grid_lanes),
                  *(o.data_ptr() for o in outs))
     if err != 0:
         raise RuntimeError(f"sparse_window kernel launch failed: CUDA "
                            f"error {err}")
     sparse_window_call.launches += 1
+    sparse_window_call.grid_lanes = grid_lanes.value
     return outs
 
 
 sparse_window_call.launches = 0
+sparse_window_call.grid_lanes = 0
 
 
 def _tau_window_loop(x, t, dead, no_leap, key, ctr, ctr_hi, tables, rates,

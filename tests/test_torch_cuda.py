@@ -18,15 +18,16 @@ import torch
 import repro_torch.api as T
 from repro_torch.core import gillespie as tg
 from repro_torch.core import tau_leap as tt
-from repro_torch.core.cwc.compile import compile_model
+from repro_torch.core.cwc.compile import cell_ring_model, compile_model
 from repro_torch.core.cwc.models import MODELS, pentamer_system
-from repro_torch.core.reactions import sparse_tables
+from repro_torch.core.reactions import make_system, sparse_tables
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import propensity as tkp
 from repro_torch.kernels import ssa_step as tks
 
 HORIZON = {"lv8": 0.05, "ecoli": 10.0, "transport": 2.0, "ring8": 0.25,
-           "coef5": 0.5}
+           "coef5": 0.5, "ring80": 0.1, "lattice8x8": 0.1, "ring256": 0.05,
+           "inert": 1.0, "quartic": 1.0, "wide": 2.0}
 OUTS = ("x", "t", "dead", "steps", "ctr", "ctr_hi")
 TAU_OUTS = ("x", "t", "dead", "steps", "leaps", "ctr", "ctr_hi",
             "iterations")
@@ -35,6 +36,25 @@ TAU_OUTS = ("x", "t", "dead", "steps", "leaps", "ctr", "ctr_hi",
 def _system(name):
     if name == "coef5":  # a reactant coefficient above MAX_COEF
         return pentamer_system()
+    if name == "quartic":  # reactant coefficients 3 and 4: dense-capable
+        return make_system(
+            ["A", "B", "C"],
+            [({}, {"A": 1}, 20.0), ({"A": 3}, {"B": 1}, 2e-3),
+             ({"B": 4}, {"C": 1}, 1e-3), ({"A": 1, "B": 2}, {"C": 1}, 1e-4),
+             ({"C": 1}, {}, 0.1), ({"B": 1}, {}, 0.05)],
+            {"A": 50, "B": 20})
+    if name == "inert":  # every propensity zero from the start
+        return make_system(["A", "B"], [({"A": 2}, {"B": 1}, 1.0),
+                                        ({"B": 1}, {}, 0.5)], {"A": 1})
+    if name == "wide":  # a reaction changes six species (D = 6)
+        return make_system(
+            ["A", "B", "C", "D", "E", "F"],
+            [({}, {"A": 1}, 5.0),
+             ({"A": 1}, {"B": 1, "C": 1, "D": 1, "E": 1, "F": 1}, 1.0),
+             ({"B": 1}, {}, 0.3), ({"C": 1, "D": 1}, {}, 0.01),
+             ({"E": 2}, {"F": 1}, 0.01), ({"F": 1}, {}, 0.2)], {"A": 10})
+    if name == "ring256":  # R = 1,792: the carry does not fit on chip
+        return compile_model(cell_ring_model(256))[0]
     return compile_model(MODELS[name]())[0]
 
 
@@ -139,6 +159,83 @@ def test_cuda_sparse_kernel_matches_plain_twin(cuda):
                                 20.0, n_steps=4096)
     torch.cuda.synchronize()
     _assert_bitwise(sparse, dense, "ecoli sparse vs dense")
+
+
+def _negative_sweep(ts, b, rng):
+    """Sweep rates with the first "dimerise1" reaction's rate negated:
+    its propensity falls below 0, and the a0 fold's running sum is no
+    longer monotone."""
+    rates = _rates(ts, b, rng, True)
+    j = next(i for i, n in enumerate(ts.reaction_names)
+             if n.startswith("dimerise1"))
+    rates[:, j] = -rates[:, j]
+    return rates
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,rates,route,n_steps", [
+    ("ring80", "shared", "shared", 4096),
+    ("lattice8x8", "sweep", "shared", 4096),
+    ("ring256", "shared", "hbm", 4096),
+    ("ring8", "negative", "shared", 4096),
+    ("inert", "shared", "shared", 4096),
+    ("wide", "sweep", "shared", 4096),
+    ("ring80", "sweep", "shared", 8),  # a budget cut: lanes still live
+])
+def test_cuda_sparse_kernel_routes_match_plain_twin(cuda, name, rates,
+                                                    route, n_steps):
+    """The sparse kernel's route follows from the shape (the carry in
+    shared memory up to R = 1,728, in HBM above), and each case is
+    bitwise its plain twin: per-lane rates, a negative rate (the scan
+    from row 0), all lanes dead from the start, more than four changed
+    species (the general update), a budget cut. ring256 runs more lanes
+    than the HBM route's one-wave grid holds, so threads take further
+    lanes from the ticket and re-seed their scratch regions."""
+    rng = np.random.default_rng(5)
+    ts = _system(name)
+    b = 65536 if name == "ring256" else 4096
+    assert tks.sparse_window_route(ts.n_reactions)[0] == route
+    r = (None if rates == "shared" else _rates(ts, b, rng, True)
+         if rates == "sweep" else _negative_sweep(ts, b, rng))
+    args, static = _sparse_args(ts, b, r, cuda)
+    h = HORIZON[name]
+    k = tks.sparse_window_call(*args, h, n_steps=n_steps, **static)
+    p = tks.sparse_window_plain(*args, h, n_steps=n_steps, **static)
+    torch.cuda.synchronize()
+    _assert_bitwise(k, p, name)
+    if name == "ring256":
+        assert tks.sparse_window_call.grid_lanes < b
+    live = (k[1] < h) & (k[2] == 0)
+    assert bool(live.any()) == (n_steps == 8), name
+    if name == "inert":
+        assert int(k[3].sum()) == 0 and bool((k[2] == 1).all())
+    else:
+        assert int(k[3].sum()) > 0, name
+
+
+@pytest.mark.cuda
+def test_cuda_dense_kernel_coefficients_3_and_4(cuda):
+    """Reactant coefficients 3 and 4 keep the comb factor's division by
+    c!: the dense kernel against its twin and the sparse kernel, shared
+    and per-lane rates."""
+    rng = np.random.default_rng(7)
+    ts = _system("quartic")
+    b = 4096
+    for per_lane in (False, True):
+        pool = tg.init_lanes(ts, b, 3, device=cuda)
+        rates = _rates(ts, b, rng, per_lane)
+        tens = tg.system_tensors(ts, rates, device=cuda)
+        args = (pool.x, pool.t, pool.dead.to(torch.int32), pool.key,
+                pool.ctr, pool.ctr_hi, *tens, HORIZON["quartic"])
+        k = tks.ssa_window_call(*args, n_steps=4096)
+        p = tks.ssa_window_plain(*args, n_steps=4096)
+        sargs, static = _sparse_args(ts, b, rates, cuda)
+        sp = tks.sparse_window_call(*sargs, HORIZON["quartic"],
+                                    n_steps=4096, **static)
+        torch.cuda.synchronize()
+        _assert_bitwise(k, p, f"quartic per_lane={per_lane}")
+        _assert_bitwise(k, sp, f"quartic sparse per_lane={per_lane}")
+        assert int(k[3].sum()) > 0
 
 
 @pytest.mark.cuda
