@@ -27,10 +27,16 @@ Phases (each prints its own lines; any failure exits non-zero):
              the Match kernel on lv8 and ring80 with shared and per-lane
              rates; the dense
              tau-leap window on lv8 (shared and per-lane rates, the
-             latter with half the lanes pinned to exact steps), ecoli and
-             transport, and with an unreachable leap threshold against
-             the exact kernel on lv8; the sparse tau-leap window on ring8
-             and ring80, and against the dense tau kernel on ecoli.
+             latter with half the lanes pinned to exact steps), ecoli,
+             transport, a budget cut, ring8 with a negative rate in a
+             sweep and 2^19 lanes (more than one wave: lanes from the
+             ticket), and with an unreachable leap threshold against the
+             exact kernel on lv8; the sparse tau-leap window on ring8
+             (also with the negative rate), ring80 (shared rates; per-lane
+             rates with half the lanes pinned to exact steps; a budget
+             cut), lattice8x8, ring256 and the coefficient-5 system, and
+             against the dense tau kernel on ecoli; each tau case names
+             the lanes a block and the lanes taken from the ticket.
 3. main    — the dense main path at full width:
              simulate(Experiment(lv8, 2^20 replicas, use_kernel=True)).
 3b. sparse — the sparse main path at full width:
@@ -211,10 +217,11 @@ def sparse_inputs(pool, sp, rates):
 
 
 def tau_inputs(system, n_lanes, seed, per_lane_rates, sparse, device,
-               no_leap=False):
+               no_leap=False, rates=None):
     """(tau kernel argument tuple minus the horizon, max_c) for one window
     of a fresh pool of `system`; `no_leap` pins every other lane to exact
-    steps."""
+    steps; `rates` (B, R), when given, replaces the sweep of
+    `per_lane_rates`."""
     import torch
 
     from repro_torch.core.gillespie import init_lanes
@@ -222,8 +229,10 @@ def tau_inputs(system, n_lanes, seed, per_lane_rates, sparse, device,
 
     pool = init_lanes(system, n_lanes, seed, device=device)
     tb = tau_tables(system, sparse=sparse, device=device)
-    rates = torch.as_tensor(sweep_rates(system, n_lanes, seed)
-                            if per_lane_rates else system.rates, device=device)
+    if rates is None:
+        rates = (sweep_rates(system, n_lanes, seed) if per_lane_rates
+                 else system.rates)
+    rates = torch.as_tensor(rates, device=device)
     nl = (torch.arange(n_lanes, device=device) % 2 if no_leap
           else torch.zeros(n_lanes, device=device)).to(torch.int32)
     return (pool.x, pool.t, pool.dead.to(torch.int32), nl, pool.key,
@@ -329,28 +338,37 @@ I_BLOCK = 78
 
 
 def tau_ops(system, tables) -> dict:
-    """The least work of one tau-leap iteration, counted from
-    kernels/csrc/tau_step.cuh (both tau kernels run it): float32
-    instructions per active iteration (`iter`), per accepted leap
-    (`leap`), per exact sub-step (`exact`) and per fired exact event
-    (`fired`); int32 instructions per accepted leap (`i_leap`) and per
-    exact sub-step (`i_exact`). An FMA counts 1.
+    """The least work of the tau-leap step, counted from
+    kernels/csrc/tau_step.cuh and the two tau kernels: float32
+    instructions per active iteration (`iter`: a0's and max a_j's R-1
+    operations each, and the gate that decides whether a leap is possible:
+    horizon - t, the LAM_MAX cap's max and divide, a min, a multiply and a
+    compare), per accepted leap (`leap`), per exact sub-step (`exact`),
+    per fired exact event (`fired`) and per lane and launch (`seed`: the
+    Match of every reaction); int32 instructions per accepted leap
+    (`i_leap`) and per exact sub-step (`i_exact`). An FMA counts 1.
 
-    Per iteration: the Match, a0's and max a_j's R-1 operations each,
-    and per consumed species the Cao sums (mu: multiply and add, sig2:
-    the square, multiply and add, per nonzero of its delta column), the
-    g_i terms (subtract, max, divide, add per nonzero coefficient row),
-    bnd (3), r1 (3), r2 (3) and the two minima; then tau (6). Per
-    accepted leap, its least: one attempt (the run does not record
-    rejected ones), each reaction's lam, exp_f32 and one cdf compare (the
-    Poisson terms past the first depend on the draws, which the run does
-    not record), the check and the update of x (an add and a multiply
-    per nonzero, an add and a compare per species), the clock (2); and
-    ceil(R/2) counter blocks. Per exact sub-step: the log, the uniforms
-    and the resolve, and one counter block with its bump; per fired
-    event the threshold, one scan add and compare and the fewest
-    nonzero entries of a delta row."""
+    The Cao bound (per consumed species: mu's multiply and add and sig2's
+    square, multiply and add per nonzero of its delta column, the g_i terms'
+    subtract, max, divide and add per nonzero coefficient row, bnd (3), r1
+    (3), r2 (3) and the two minima) and tau (4) are charged to accepted
+    leaps only: the run does not count the iterations that pass the gate
+    and then do not leap. Per accepted leap also the Match of every
+    reaction it makes due (a leap may change every population) and its
+    own least: one attempt (the run does not record rejected ones), each
+    reaction's lam, exp_f32 and one cdf compare (the Poisson terms past the
+    first depend on the draws, which the run does not record), the check
+    and the update of x (an add and a multiply per nonzero, an add and a
+    compare per species), the clock (2); and ceil(R/2) counter blocks. Per
+    exact sub-step: the log, the uniforms and the resolve, and one counter
+    block with its bump; per fired event, least over j: the threshold, one
+    scan add and compare, j's nonzero delta entries and the Match of j's
+    dependency rows. `iter_full`, `leap_full` and `fired_full` are the
+    earlier count, which charged the Match and the Cao bound to every
+    iteration."""
     import numpy as np
+
+    from repro_torch.core.reactions import sparse_tables
 
     r = system.n_reactions
     coef = system.reactant_coef
@@ -359,15 +377,19 @@ def tau_ops(system, tables) -> dict:
     consumed = np.asarray(tables.rmask.cpu()) > 0
     cao = sum(5 * int(nnz_col[i]) + 4 * int((gi[1:, i] != 0).sum()) + 11
               for i in np.nonzero(consumed)[0])
-    f_iter = (sum(slot_ops(row) for row in coef) + 2 * (r - 1) + cao + 6)
+    match = sum(slot_ops(row) for row in coef)
     nnz = int(nnz_col.sum())
     s = system.n_species
     f_leap = r * (1 + F_EXP + 1) + 2 * (2 * nnz + 2 * s) + 2
     n_pairs = (r + 1) // 2
-    nnz_row = int((system.delta != 0).sum(axis=1).min())
-    return dict(iter=f_iter, leap=f_leap,
-                exact=F_LOG + F_UNIFORMS + F_RESOLVE, fired=3 + nnz_row,
-                i_leap=n_pairs * I_BLOCK + 2, i_exact=I_STEP)
+    nnz_row = (system.delta != 0).sum(axis=1)
+    fired = min(3 + int(n) + m for n, m in zip(
+        nnz_row, dep_match(system, sparse_tables(system))))
+    return dict(iter=2 * (r - 1) + 6, leap=cao + 4 + match + f_leap,
+                exact=F_LOG + F_UNIFORMS + F_RESOLVE, fired=fired,
+                seed=match, i_leap=n_pairs * I_BLOCK + 2, i_exact=I_STEP,
+                iter_full=match + 2 * (r - 1) + cao + 6, leap_full=f_leap,
+                fired_full=3 + int(nnz_row.min()))
 
 
 def pool_bytes(b, s) -> int:
@@ -402,7 +424,7 @@ def phase_build() -> None:
     for line in build.build_log().splitlines():
         if line.startswith("==") or any(
                 w in line for w in ("registers", "spill", "error",
-                                    "stack frame")):
+                                    "stack frame", "entry function")):
             log(f"[build] {line.strip()}")
 
 
@@ -433,6 +455,7 @@ def phase_kernels(device) -> dict:
         sparse_tau_window_plain,
         sparse_window_call,
         sparse_window_plain,
+        sparse_tau_lanes_per_block,
         sparse_window_route,
         ssa_window_call,
         ssa_window_plain,
@@ -537,23 +560,63 @@ def phase_kernels(device) -> dict:
                                      f"{name}")
             worst["propensity"] = max(worst["propensity"], err)
 
-    tau_cases = [  # (model, per-lane rates, no_leap half, horizon)
-        ("lv8", False, False, 0.5),
-        ("lv8", True, True, 0.5),
-        ("ecoli", False, False, 50.0),
-        ("transport", True, False, 2.0),
-    ]
-    for name, per_lane, no_leap, horizon in tau_cases:
+    def tau_case(sparse, name, rates, no_leap, horizon, n_steps, fallback,
+                 lanes, wave=False):
+        """One tau kernel against its twin; `wave`: the lanes must exceed
+        what the one-wave grid holds (some come from the ticket)."""
         system = system_of(name)
-        args, _ = tau_inputs(system, CHECK_LANES, CHECK_SEED, per_lane, False,
-                             device, no_leap)
-        kw = dict(n_steps=budget, eps=0.03, fallback=10.0)
-        k = tau_window_call(*args, horizon, **kw)
-        p = tau_window_plain(*args, horizon, **kw)
-        check("tau_window", f"{name} B={CHECK_LANES} rates="
-              f"{'(B,R)' if per_lane else '(R,)'}"
-              f"{' no_leap=half' if no_leap else ''}, {int(k[4].sum())} "
-              f"leaps,", k, p, horizon, budget)
+        args, max_c = tau_inputs(system, lanes, CHECK_SEED, rates != "(R,)",
+                                 sparse, device, no_leap,
+                                 negative_sweep(system, lanes, CHECK_SEED)
+                                 if rates == "negative" else None)
+        kw = dict(n_steps=n_steps, eps=0.03, fallback=fallback)
+        call, plain = ((sparse_tau_window_call, sparse_tau_window_plain)
+                       if sparse else (tau_window_call, tau_window_plain))
+        if sparse:
+            kw["max_c"] = max_c
+        k = call(*args, horizon, **kw)
+        ticket = lanes - call.grid_lanes
+        p = plain(*args, horizon, **kw)
+        s, r = system.n_species, system.n_reactions
+        route = (f"{sparse_tau_lanes_per_block(s, r)} lanes a block"
+                 if sparse else "128 lanes a block")
+        label = (f"{name} S={s} R={r} B={lanes} rates={rates}"
+                 f"{' no_leap=half' if no_leap else ''} fallback={fallback:g}"
+                 f" {route}, {ticket} lanes from the ticket, "
+                 f"{int(k[4].sum())} leaps,")
+        kernel = "sparse_tau_window" if sparse else "tau_window"
+        check(kernel, label, k, p, horizon, n_steps)
+        if wave and not ticket:
+            raise AssertionError(f"{kernel}: {name} took no lane from the "
+                                 f"ticket")
+        return args, k, label
+
+    # (sparse, model, rates, no_leap half, horizon, n_steps, fallback,
+    # lanes, more lanes than one wave)
+    tau_cases = [
+        (False, "lv8", "(R,)", False, 0.5, budget, 10.0, CHECK_LANES),
+        (False, "lv8", "(B,R)", True, 0.5, budget, 10.0, CHECK_LANES),
+        (False, "ecoli", "(R,)", False, 50.0, budget, 10.0, CHECK_LANES),
+        (False, "transport", "(B,R)", False, 2.0, budget, 10.0, CHECK_LANES),
+        (False, "lv8", "(R,)", False, 0.5, 48, 10.0, CHECK_LANES),
+        (False, "ring8", "negative", False, 0.5, budget, 3.0, CHECK_LANES),
+        (False, "lv8", "(B,R)", False, 0.1, budget, 10.0, 8 * CHECK_LANES,
+         True),
+        (True, "ring8", "(R,)", False, 0.5, budget, 3.0, CHECK_LANES),
+        (True, "ring8", "negative", False, 0.5, budget, 3.0, CHECK_LANES),
+        (True, "ring80", "(R,)", False, 0.5, budget, 10.0, CHECK_LANES,
+         True),
+        (True, "ring80", "(B,R)", True, 0.5, budget, 10.0, CHECK_LANES,
+         True),
+        (True, "ring80", "(B,R)", False, 0.5, 6, 10.0, CHECK_LANES),
+        (True, "lattice8x8", "(B,R)", False, 0.25, budget, 10.0,
+         CHECK_LANES, True),
+        (True, "ring256", "(R,)", False, 0.1, budget, 10.0,
+         CHECK_LANES // 8, True),
+        (True, "coef5", "(R,)", False, 0.5, budget, 3.0, CHECK_LANES),
+    ]
+    for case in tau_cases:
+        tau_case(*case)
     # an unreachable leap threshold: the exact kernel's window
     system = system_of("lv8")
     args, _ = tau_inputs(system, CHECK_LANES, CHECK_SEED, False, False,
@@ -570,30 +633,15 @@ def phase_kernels(device) -> dict:
     if n_diff or int(k[4].sum()):
         raise AssertionError("tau kernel without leaps and exact kernel "
                              "disagree")
-
-    sparse_tau_cases = [  # (model, fallback, horizon)
-        ("ring8", 3.0, 0.5),  # ring8 leaps only below the default 10
-        ("ring80", 10.0, 0.5),
-        ("ecoli", 10.0, 50.0),
-    ]
-    for name, fallback, horizon in sparse_tau_cases:
-        system = system_of(name)
-        args, max_c = tau_inputs(system, CHECK_LANES, CHECK_SEED, False, True,
-                                 device)
-        kw = dict(n_steps=budget, eps=0.03, fallback=fallback)
-        k = sparse_tau_window_call(*args, horizon, max_c=max_c, **kw)
-        p = sparse_tau_window_plain(*args, horizon, max_c=max_c, **kw)
-        label = (f"{name} S={system.n_species} R={system.n_reactions} "
-                 f"B={CHECK_LANES} fallback={fallback:g}, "
-                 f"{int(k[4].sum())} leaps,")
-        check("sparse_tau_window", label, k, p, horizon, budget)
-        if name == "ecoli":  # the sparse tau kernel against the dense one
-            d = tau_window_call(*args, horizon, **kw)
-            n_diff, _ = bitwise_diff(k, d)
-            log(f"[kernels] sparse_tau_window vs tau_window {label}: "
-                f"{n_diff} differing elements")
-            if n_diff:
-                raise AssertionError("sparse and dense tau kernels disagree")
+    # the sparse tau kernel against the dense one
+    args, k, label = tau_case(True, "ecoli", "(R,)", False, 50.0, budget,
+                              10.0, CHECK_LANES)
+    d = tau_window_call(*args, 50.0, n_steps=budget, eps=0.03, fallback=10.0)
+    n_diff, _ = bitwise_diff(k, d)
+    log(f"[kernels] sparse_tau_window vs tau_window {label}: {n_diff} "
+        f"differing elements")
+    if n_diff:
+        raise AssertionError("sparse and dense tau kernels disagree")
     return worst
 
 
@@ -941,26 +989,40 @@ def phase_tau(device, sparse: bool, exact: dict) -> dict:
             pool.ctr_hi, *tb[:6], eng._rates_dev, tb.gi, tb.rmask)
     horizon = float(np.float32(eng.grid[1]))
     kw = dict(n_steps=exp.kernel_chunk_steps * exp.kernel_max_chunks,
-              eps=exp.tau_eps, fallback=exp.tau_fallback,
-              **({"max_c": tb.max_c} if sparse else {}))
+              eps=exp.tau_eps, fallback=exp.tau_fallback)
+    # the kernel's bound operands, as FusedDispatch binds them once per run
+    bound_kw = ({"max_c": tb.max_c} if sparse else
+                {"dep_mask": ssa_step.dense_dep_mask(*eng._tensors_base[:3])})
     k_ms, p_ms, out, err = time_against_twin(
-        label, lambda: call(*args, horizon, **kw),
-        lambda: plain(*args, horizon, **kw), reps=3)
+        label, lambda: call(*args, horizon, **kw, **bound_kw),
+        lambda: plain(*args, horizon, **kw,
+                      **({"max_c": tb.max_c} if sparse else {})), reps=3)
+    ticket = pool.x.shape[0] - call.grid_lanes
     iters, leaps = int(out[7].sum()), int(out[4].sum())
     fired = int(out[3].sum()) - leaps
+    lanes_active = int((out[7] > 0).sum())
     ops = tau_ops(eng.system, tb)
     b, s = pool.x.shape
     # the pool in and out, no_leap in, leaps and iterations out, tables
     n_bytes = pool_bytes(b, s) + b * 12 + nbytes(*args[7:])
+    i_ops = leaps * ops["i_leap"] + (iters - leaps) * ops["i_exact"]
+    f_exact = (iters - leaps) * ops["exact"]
     bound, by, detail = bound_of(
-        n_bytes, iters * ops["iter"] + leaps * ops["leap"]
-        + (iters - leaps) * ops["exact"] + fired * ops["fired"],
-        leaps * ops["i_leap"] + (iters - leaps) * ops["i_exact"])
+        n_bytes, iters * ops["iter"] + leaps * ops["leap"] + f_exact
+        + fired * ops["fired"] + lanes_active * ops["seed"], i_ops)
+    bound_full, _, _ = bound_of(
+        n_bytes, iters * ops["iter_full"] + leaps * ops["leap_full"]
+        + f_exact + fired * ops["fired_full"], i_ops)
+    where = (f"{ssa_step.sparse_tau_lanes_per_block(s, eng.system.n_reactions)}"
+             f" lanes a block" if sparse else "128 lanes a block")
     log(f"[{label}] one window at full width: kernel {k_ms:.3f} ms, plain "
         f"twin {p_ms:.1f} ms, 0 differing elements; {iters} active lane "
         f"iterations, {leaps} leaps, {fired} exact events; bound "
-        f"{bound:.4f} ms ({detail}); the same window took {win0_ms:.3f} ms "
-        f"end to end, kernel share {k_ms / win0_ms:.4f}")
+        f"{bound:.4f} ms ({detail}; charging the Match and the Cao bound "
+        f"to every iteration {bound_full:.4f} ms); "
+        f"{where}, {ticket} of {b} lanes from the ticket; the same window "
+        f"took {win0_ms:.3f} ms end to end, kernel share "
+        f"{k_ms / win0_ms:.4f}")
     return dict(launches=nums["launches"], ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound, bound_by=by, err=err)
 

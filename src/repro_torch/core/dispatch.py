@@ -131,18 +131,20 @@ class FusedDispatch:
         cfg = self.eng.cfg
         sp = self.eng._sparse_tensors
         tau = self.eng._tau_tables
+        base = self.eng._tensors_base[:3]
+        # the dense kernels' dependency masks; the CPU twins read none
+        dense_mask = (dense_dep_mask(*base)
+                      if rates.is_cuda and not cfg.sparse else None)
         if tau is not None:
-            loop = (sparse_tau_window_chunk_loop if cfg.sparse
-                    else tau_window_chunk_loop)
-            self._loop = partial(loop, rates=rates, eps=cfg.tau_eps,
-                                 fallback=cfg.tau_fallback)
+            self._loop = (
+                partial(sparse_tau_window_chunk_loop, rates=rates,
+                        eps=cfg.tau_eps, fallback=cfg.tau_fallback)
+                if cfg.sparse else
+                partial(tau_window_chunk_loop, rates=rates, eps=cfg.tau_eps,
+                        fallback=cfg.tau_fallback, dep_mask=dense_mask))
             self._tables = tau
         elif sp is None:
-            base = self.eng._tensors_base[:3]
-            # the kernel's dependency masks; the CPU twin reads none
-            self._loop = partial(
-                window_chunk_loop,
-                dep_mask=dense_dep_mask(*base) if rates.is_cuda else None)
+            self._loop = partial(window_chunk_loop, dep_mask=dense_mask)
             self._tables = (*base, rates)
         else:
             self._loop = sparse_window_chunk_loop

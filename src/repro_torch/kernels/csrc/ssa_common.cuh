@@ -93,18 +93,88 @@ __device__ __forceinline__ float exp_f32(float x) {
   return __fmul_rn(y, __int_as_float(((int)n + 127) << 23));
 }
 
-// Inverse-transform Poisson draw for lam >= 0: the number of the first 64
-// CDF terms below u (pmf = exp(-lam), then pmf *= lam / i, cdf += pmf), as
+// lam / i for i = 1..64 by a table: kQuotHi[i] = RN(1/i), kQuotLo[i] =
+// RN(1/i - kQuotHi[i]) (float32, round to nearest even), and
+// quotient(lam, i) = RN(lam kQuotHi[i] + RN(lam kQuotLo[i])): a multiply
+// and an fma in place of the division's reciprocal, Newton steps and range
+// check (whose slow path alone cost the sparse tau kernel about 9% on
+// ring80 on an H100). It equals __fdiv_rn(lam, i) for every finite
+// |lam| > 2^-25.
+// Rounding is symmetric, so lam > 0 decides it; scaling lam or i by a
+// power of two scales every step exactly there (no product leaves the
+// normal range), so odd i and lam in [1, 2) decide it. The sum the fma
+// rounds lies within about (lam / i) 2^-47 of lam / i, below 2^-23 of its
+// ulp, while lam / i (a multiple of 2^-23 over an odd i < 64) lies at
+// least ulp / 256 from every rounding boundary and never on one.
+// tests/test_torch_tau_kernel_order.py checks the table against 1/i, that
+// error bound for every odd i, and the quotient against IEEE division on
+// sampled significands. A leap's lam is finite: a_j <= max_j a_j and
+// tau <= LAM_MAX / max_j a_j, and a negative a_j (a negative sweep rate)
+// is smaller in size than a0's positive terms, else a0 <= 0 and no lane
+// leaps. For |lam| <= 2^-25 the quotient's bits do not matter: the cdf
+// is exp_f32(-lam) = 1 and stays 1 (every pmf term is at most 2^-25 in
+// size), so no term is counted either way.
+static __constant__ float kQuotHi[65] = {
+    0.0f, 0x1p+0f, 0x1p-1f, 0x1.555556p-2f, 0x1p-2f, 0x1.99999ap-3f,
+    0x1.555556p-3f, 0x1.24924ap-3f, 0x1p-3f, 0x1.c71c72p-4f, 0x1.99999ap-4f,
+    0x1.745d18p-4f, 0x1.555556p-4f, 0x1.3b13b2p-4f, 0x1.24924ap-4f,
+    0x1.111112p-4f, 0x1p-4f, 0x1.e1e1e2p-5f, 0x1.c71c72p-5f, 0x1.af286cp-5f,
+    0x1.99999ap-5f, 0x1.861862p-5f, 0x1.745d18p-5f, 0x1.642c86p-5f,
+    0x1.555556p-5f, 0x1.47ae14p-5f, 0x1.3b13b2p-5f, 0x1.2f684cp-5f,
+    0x1.24924ap-5f, 0x1.1a7b96p-5f, 0x1.111112p-5f, 0x1.08421p-5f, 0x1p-5f,
+    0x1.f07c2p-6f, 0x1.e1e1e2p-6f, 0x1.d41d42p-6f, 0x1.c71c72p-6f,
+    0x1.bacf92p-6f, 0x1.af286cp-6f, 0x1.a41a42p-6f, 0x1.99999ap-6f,
+    0x1.8f9c18p-6f, 0x1.861862p-6f, 0x1.7d05f4p-6f, 0x1.745d18p-6f,
+    0x1.6c16c2p-6f, 0x1.642c86p-6f, 0x1.5c9882p-6f, 0x1.555556p-6f,
+    0x1.4e5e0ap-6f, 0x1.47ae14p-6f, 0x1.414142p-6f, 0x1.3b13b2p-6f,
+    0x1.3521dp-6f, 0x1.2f684cp-6f, 0x1.29e412p-6f, 0x1.24924ap-6f,
+    0x1.1f7048p-6f, 0x1.1a7b96p-6f, 0x1.15b1e6p-6f, 0x1.111112p-6f,
+    0x1.0c9714p-6f, 0x1.08421p-6f, 0x1.041042p-6f, 0x1p-6f};
+static __constant__ float kQuotLo[65] = {
+    0.0f, 0.0f, 0.0f, -0x1.555556p-27f, 0.0f, -0x1.99999ap-29f,
+    -0x1.555556p-28f, -0x1.b6db6ep-28f, 0.0f, -0x1.c71c72p-31f,
+    -0x1.99999ap-30f, -0x1.745d18p-29f, -0x1.555556p-29f, -0x1.89d89ep-29f,
+    -0x1.b6db6ep-29f, -0x1.dddddep-29f, 0.0f, -0x1.e1e1e2p-33f,
+    -0x1.c71c72p-32f, -0x1.af286cp-32f, -0x1.99999ap-31f, -0x1.e79e7ap-31f,
+    -0x1.745d18p-30f, -0x1.bd37a6p-31f, -0x1.555556p-30f, 0x1.eb851ep-31f,
+    -0x1.89d89ep-30f, -0x1.2f684cp-32f, -0x1.b6db6ep-30f, 0x1.1a7b96p-33f,
+    -0x1.dddddep-30f, 0x1.08421p-30f, 0.0f, -0x1.f07c2p-31f, -0x1.e1e1e2p-34f,
+    -0x1.5f15f2p-33f, -0x1.c71c72p-33f, -0x1.67c8a6p-31f, -0x1.af286cp-33f,
+    -0x1.6f96fap-32f, -0x1.99999ap-32f, 0x1.f3832p-31f, -0x1.e79e7ap-32f,
+    0x1.7d05f4p-34f, -0x1.745d18p-31f, -0x1.27d27ep-31f, -0x1.bd37a6p-32f,
+    0x1.72620ap-31f, -0x1.555556p-31f, 0x1.cbc14ep-32f, 0x1.eb851ep-32f,
+    -0x1.7d7d7ep-31f, -0x1.89d89ep-31f, -0x1.3521dp-32f, -0x1.2f684cp-33f,
+    0x1.3c8254p-31f, -0x1.b6db6ep-31f, -0x1.1f7048p-33f, 0x1.1a7b96p-34f,
+    -0x1.15b1e6p-35f, -0x1.dddddep-31f, 0x1.f79b48p-31f, 0x1.08421p-31f,
+    -0x1.f7df7ep-31f, 0.0f};
+
+__device__ __forceinline__ float quotient(float lam, int i) {
+  return __fmaf_rn(lam, kQuotHi[i], __fmul_rn(lam, kQuotLo[i]));
+}
+
+// Inverse-transform Poisson draw: the number of the first 64 CDF terms
+// below u (pmf = exp(-lam), then pmf *= lam / i, cdf += pmf), as
 // core/tau_leap.py::poisson_from_uniform counts them. The cdf never falls
-// when lam >= 0, so the loop stops at the first term that reaches u.
+// when lam >= 0, so the loop stops at the first term that reaches u; a
+// negative lam (a negative sweep rate) alternates the pmf's sign, so every
+// term is counted, as the twin does.
 __device__ __forceinline__ float poisson_from_uniform(float u, float lam) {
   float pmf = exp_f32(-lam);
   float cdf = pmf;
   float k = 0.0f;
+  if (lam < 0.0f) {
+    for (int i = 1;; ++i) {
+      if (cdf < u) k = __fadd_rn(k, 1.0f);
+      if (i == 64) break;
+      pmf = __fmul_rn(pmf, quotient(lam, i));
+      cdf = __fadd_rn(cdf, pmf);
+    }
+    return k;
+  }
   for (int i = 1; cdf < u; ++i) {
     k = __fadd_rn(k, 1.0f);
     if (i == 64) break;
-    pmf = __fmul_rn(pmf, __fdiv_rn(lam, (float)i));
+    pmf = __fmul_rn(pmf, quotient(lam, i));
     cdf = __fadd_rn(cdf, pmf);
   }
   return k;

@@ -146,15 +146,18 @@ def sparse_window_chunk_loop(pool: LaneState, tables: SparseWindowTables,
 def tau_window_chunk_loop(pool: LaneState, tables: TauTables, horizon, *,
                           rates, eps: float, fallback: float,
                           chunk_steps: int = DEFAULT_CHUNK_STEPS,
-                          max_chunks: int = DEFAULT_MAX_CHUNKS
-                          ) -> FusedWindowOut:
+                          max_chunks: int = DEFAULT_MAX_CHUNKS,
+                          dep_mask=None) -> FusedWindowOut:
     """`window_chunk_loop` through the dense tau-leap kernel
     (`tau_window_call`): one launch per window with the whole budget of
     chunk_steps * max_chunks iterations per lane. tables: a dense
     `core.tau_leap.tau_tables`; rates (R,) or (B, R); a lane whose
-    `no_leap` is set takes exact steps only."""
-    return _tau_window(tau_window_call, pool, tables, horizon, rates, eps,
-                       fallback, chunk_steps, max_chunks)
+    `no_leap` is set takes exact steps only. dep_mask: the kernel's
+    `ssa_step.dense_dep_mask` of the system, bound once per run by the
+    caller (derived per launch when None)."""
+    return _tau_window(partial(tau_window_call, dep_mask=dep_mask), pool,
+                       tables, horizon, rates, eps, fallback, chunk_steps,
+                       max_chunks)
 
 
 def sparse_tau_window_chunk_loop(pool: LaneState, tables: TauTables,
@@ -164,7 +167,7 @@ def sparse_tau_window_chunk_loop(pool: LaneState, tables: TauTables,
                                  max_chunks: int = DEFAULT_MAX_CHUNKS
                                  ) -> FusedWindowOut:
     """`tau_window_chunk_loop` through the sparse tau-leap kernel
-    (`sparse_tau_window_call`: no S/R cap, the comb unroll to the
+    (`sparse_tau_window_call`: a warp per lane, the comb unroll to the
     tables' max_c). Bitwise identical to the dense loop on a system both
     take."""
     return _tau_window(partial(sparse_tau_window_call, max_c=tables.max_c),

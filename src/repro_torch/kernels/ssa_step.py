@@ -19,13 +19,16 @@ which seeds the carried propensities with
 adaptive tau-leap iterations per lane — the ports of the reference's
 `tau_window_call` (`_tau_window_kernel`) and `sparse_tau_window_call`
 (`_sparse_tau_window_kernel`): the CUDA kernels
-`kernels/csrc/tau_window.cu` (S, R <= 64, reactant coefficients <= 4,
-tables in shared memory) and `kernels/csrc/sparse_tau_window.cu` (no
-caps), or on the CPU `tau_window_plain` / `sparse_tau_window_plain`,
-which loop `core.tau_leap.tau_step_core`. The two take the same
+`kernels/csrc/tau_window.cu` (a thread per lane; S, R <= 64, reactant
+coefficients <= 4; tables and the lanes' arrays in shared memory) and
+`kernels/csrc/sparse_tau_window.cu` (a warp per lane, its arrays in
+shared memory, as many lanes a block as
+`sparse_tau_lanes_per_block(S, R)` fits), or on the CPU
+`tau_window_plain` / `sparse_tau_window_plain`, which loop
+`core.tau_leap.tau_step_core`. The two take the same
 operands (`core.tau_leap.TauTables` and the rates) and give the same
-bits on a system both accept; they differ in where the tables and the
-lane's arrays live, and in the comb unroll (MAX_COEF, or the system's
+bits on a system both accept; they differ in who runs a lane and where
+its arrays live, and in the comb unroll (MAX_COEF, or the system's
 `max_c`). Besides the pool they return each lane's count of active
 iterations, from which the chunk loop recovers the reference's chunk
 count (a tau iteration consumes a varying number of counter blocks).
@@ -55,9 +58,9 @@ from repro_torch.core.reactions import MAX_COEF, MAX_REACTANTS
 from repro_torch.core.stream import from_words, to_words
 from repro_torch.core.tau_leap import TauTables, lane_fallback, tau_step_core
 
-#: shape caps of the dense CUDA kernel (per-thread population array,
-#: shared memory tables); larger systems raise — run them with
-#: sparse=True, whose kernel has no such cap
+#: shape caps of the dense CUDA kernels (the lanes' arrays and the
+#: tables in shared memory, dependency masks of 64 bits); larger systems
+#: raise — run them with sparse=True
 MAX_S = 64
 MAX_R = 64
 
@@ -461,20 +464,53 @@ def sparse_tau_window_plain(x, t, dead, no_leap, key, ctr, ctr_hi, idx,
                             rates, horizon, n_steps, eps, fallback)
 
 
-_TAU_ARGTYPES = ([_P] * 16 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                              ctypes.c_float, ctypes.c_float]
-                 + [ctypes.c_int] * 7)
+def sparse_tau_lane_floats(s: int, r: int) -> int:
+    """Floats of one lane's region in the sparse tau kernel's shared
+    memory: the a0 fold's checkpoints padded to a multiple of 4, the R
+    propensities padded with zeros to whole blocks of CK_ROWS, then the
+    populations and the leap's increments dx, S each padded to a multiple
+    of 4."""
+    blocks = -(-r // CK_ROWS)
+    return ((blocks + 3) // 4 * 4 + blocks * CK_ROWS
+            + 2 * ((s + 3) // 4 * 4))
+
+
+#: most lanes (warps) a block of the sparse tau kernel (its launch bound
+#: in kernels/csrc/sparse_tau_window.cu is 32 threads a lane times this)
+TAU_LANES_PER_BLOCK = 16
+
+
+def sparse_tau_lanes_per_block(s: int, r: int) -> int:
+    """Lanes (warps) a block of the sparse tau kernel, chosen from the
+    number of species S and reactions R: as many lanes' regions
+    (`sparse_tau_lane_floats`) as fit a block's shared memory, at most
+    TAU_LANES_PER_BLOCK. Raises ValueError where one lane's region does
+    not fit a block: there is no slower route to fall back to."""
+    fit = SMEM_BLOCK_BYTES // (4 * sparse_tau_lane_floats(s, r))
+    if fit < 1:
+        raise ValueError(
+            f"sparse_tau_window_call: one lane's arrays (S={s} species, "
+            f"R={r} reactions: {4 * sparse_tau_lane_floats(s, r)} bytes) do "
+            f"not fit the {SMEM_BLOCK_BYTES} bytes of a block's shared "
+            f"memory")
+    return min(TAU_LANES_PER_BLOCK, fit)
+
+
+#: the tau launchers' scalars: rates_per_lane, horizon, n_steps, eps,
+#: fallback, then B, S, R, L, D, G, max_c
+_TAU_SCALARS = ([ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                 ctypes.c_float] + [ctypes.c_int] * 7)
 
 
 def _launch_tau(name, fn_name, args, horizon, n_steps, eps, fallback,
-                max_c, scratch: bool):
+                max_c, dep_mask=None):
     """Check the tau kernels' operands, launch `fn_name` and return its
     eight fresh outputs (x, t, dead, steps, leaps, ctr, ctr_hi,
-    iterations). With `scratch` (the sparse kernel) the launch also gets
-    the lane's populations (S, B) and propensities and Poisson counts
-    (R, B), lanes minor, freed when this returns; the caching allocator
-    hands those blocks only to work queued after the launch on the same
-    stream."""
+    iterations) and the lanes its grid took first (the rest came from
+    the ticket). With `dep_mask` (the dense kernel, its masks already
+    checked) the launch takes it after the tables; without it (the sparse
+    kernel) `sparse_tau_lanes_per_block` and the floats
+    of a lane's region."""
     (x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef, col_j, col_v,
      row_idx, row_val, rates, gi, rmask) = args
     b, s = x.shape
@@ -500,30 +536,37 @@ def _launch_tau(name, fn_name, args, horizon, n_steps, eps, fallback,
     check("rates", rates, torch.float32, (b, r) if per_lane else (r,))
     check("gi", gi, torch.float32, (n_gi, s))
     check("rmask", rmask, torch.float32, (s,))
+    if dep_mask is not None:  # the dense kernel
+        tab, ints = (dep_mask,), ()
+    else:
+        tab, ints = (), (sparse_tau_lanes_per_block(s, r),
+                         sparse_tau_lane_floats(s, r))
     from repro_torch.kernels.build import load
 
     fn = getattr(load(), fn_name)
-    fn.argtypes = _TAU_ARGTYPES + [_P] * ((3 if scratch else 0) + 8 + 1)
+    fn.argtypes = ([_P] * (16 + len(tab)) + _TAU_SCALARS
+                   + [ctypes.c_int] * len(ints) + [_P] * 11)
     fn.restype = ctypes.c_int
     outs = (torch.empty_like(x), torch.empty_like(t),
             *(torch.empty_like(dead) for _ in range(3)),
             torch.empty_like(ctr), torch.empty_like(ctr_hi),
             torch.empty_like(dead))
-    work = [torch.empty((n, b), dtype=torch.float32, device=dev)
-            for n in ((s, r, r) if scratch else ())]
-    err = launch(fn, dev, *(a.data_ptr() for a in args), int(per_lane),
-                 float(np.float32(horizon)), int(n_steps),
+    ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+    grid_lanes = ctypes.c_int(0)
+    err = launch(fn, dev, *(a.data_ptr() for a in (*args, *tab)),
+                 int(per_lane), float(np.float32(horizon)), int(n_steps),
                  float(np.float32(eps)), float(np.float32(fallback)), b, s, r,
-                 width, d, n_gi, int(max_c), *(w.data_ptr() for w in work),
-                 *(o.data_ptr() for o in outs))
+                 width, d, n_gi, int(max_c), *ints, ticket.data_ptr(),
+                 ctypes.addressof(grid_lanes), *(o.data_ptr() for o in outs))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    return outs
+    return outs, grid_lanes.value
 
 
 def tau_window_call(x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef, col_j,
                     col_v, row_idx, row_val, rates, gi, rmask, horizon, *,
-                    n_steps: int, eps: float, fallback: float):
+                    n_steps: int, eps: float, fallback: float,
+                    dep_mask=None):
     """Run up to n_steps fused tau-leap iterations per lane toward
     `horizon` through the dense kernel, whose comb unroll stops at
     MAX_COEF (`core.tau_leap.tau_tables(sparse=False)` refuses larger
@@ -532,10 +575,15 @@ def tau_window_call(x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef, col_j,
     Pool operands as `ssa_window_call`, plus no_leap (B,) int32 (nonzero:
     the lane takes exact steps only). idx / coef (R, 4) int32; col_j /
     col_v (S, L), row_idx / row_val (R+1, D), gi (G, S), rmask (S,):
-    `core.tau_leap.TauTables`; rates (R,) or (B, R) float32.
+    `core.tau_leap.TauTables`; rates (R,) or (B, R) float32. dep_mask:
+    the kernel's `dense_dep_mask` of the system (`FusedDispatch.set_rates`
+    binds it once per run), derived here from the tables when None (the
+    twin does not read it).
     Returns (x, t, dead, steps_taken, leaps_taken, ctr, ctr_hi,
     iterations) as new tensors, iterations counting each lane's active
-    iterations.
+    iterations. After a launch, `tau_window_call.grid_lanes` holds the
+    lanes its grid took first (one per thread); the rest came from the
+    ticket.
     """
     args = (x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef, col_j, col_v,
             row_idx, row_val, rates, gi, rmask)
@@ -550,24 +598,43 @@ def tau_window_call(x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef, col_j,
             f"tau_window_call: the dense CUDA kernel takes 1 <= S <= "
             f"{MAX_S} species and 1 <= R <= {MAX_R} reactions, got S={s}, "
             f"R={r}; run larger systems with sparse=True")
-    outs = _launch_tau("tau_window_call", "tau_window_launch", args,
-                       horizon, n_steps, eps, fallback, MAX_COEF, False)
+    if dep_mask is None:
+        dep_mask = tau_dep_mask(idx, coef, row_idx, row_val, s)
+    check_operand("tau_window_call", "dep_mask", dep_mask, torch.int64, (r,),
+                  x.device)
+    outs, tau_window_call.grid_lanes = _launch_tau(
+        "tau_window_call", "tau_window_launch", args, horizon, n_steps, eps,
+        fallback, MAX_COEF, dep_mask)
     tau_window_call.launches += 1
     return outs
 
 
 tau_window_call.launches = 0
+tau_window_call.grid_lanes = 0
+
+
+def tau_dep_mask(idx, coef, row_idx, row_val, s: int) -> torch.Tensor:
+    """`dense_dep_mask` from a system's tau tables (the exact sub-step's
+    delta rows `row_idx` / `row_val` (R+1, D), pads at species S)."""
+    r = idx.shape[0]
+    delta = torch.zeros((r, s + 1), dtype=torch.float32,
+                        device=row_val.device)
+    delta.scatter_(1, row_idx[:r].long(), row_val[:r])
+    return dense_dep_mask(idx, coef, delta[:, :s])
 
 
 def sparse_tau_window_call(x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef,
                            col_j, col_v, row_idx, row_val, rates, gi, rmask,
                            horizon, *, n_steps: int, eps: float,
                            fallback: float, max_c: int):
-    """`tau_window_call` through the sparse kernel: no S/R cap, the comb
-    unroll to `max_c` (at least the system's largest reactant
+    """`tau_window_call` through the sparse kernel: a warp per lane, the
+    comb unroll to `max_c` (at least the system's largest reactant
     coefficient, as `core.tau_leap.tau_tables(sparse=True)` sets it).
-    The lane's populations, propensities and Poisson counts live in
-    scratch tensors on the card for the launch only."""
+    Each lane's populations, propensities and leap increments live in
+    shared memory (`sparse_tau_lanes_per_block(S, R)`, which raises where
+    they do not fit). After a launch, `sparse_tau_window_call.grid_lanes`
+    holds the lanes its grid took first (one per warp); the rest came
+    from the ticket."""
     args = (x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef, col_j, col_v,
             row_idx, row_val, rates, gi, rmask)
     if x.device.type == "cpu":
@@ -577,10 +644,12 @@ def sparse_tau_window_call(x, t, dead, no_leap, key, ctr, ctr_hi, idx, coef,
     if x.device.type != "cuda":
         raise ValueError(f"sparse_tau_window_call: unsupported device "
                          f"{x.device}")
-    outs = _launch_tau("sparse_tau_window_call", "sparse_tau_window_launch",
-                       args, horizon, n_steps, eps, fallback, max_c, True)
+    outs, sparse_tau_window_call.grid_lanes = _launch_tau(
+        "sparse_tau_window_call", "sparse_tau_window_launch", args, horizon,
+        n_steps, eps, fallback, max_c)
     sparse_tau_window_call.launches += 1
     return outs
 
 
 sparse_tau_window_call.launches = 0
+sparse_tau_window_call.grid_lanes = 0

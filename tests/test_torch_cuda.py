@@ -1,9 +1,9 @@
 """The port on the card: each CUDA kernel (dense SSA window, sparse SSA
 window, Match, dense and sparse tau-leap windows) against its plain
 twin, the sparse kernels against the dense ones, the tau kernel with an
-unreachable leap threshold against the exact kernel, and the
-fused-kernel engine paths against the unfused ones, bit for bit on one
-device.
+unreachable leap threshold against the exact kernel, the persistent
+lanes' ticket, and the fused-kernel engine paths against the unfused
+ones, bit for bit on one device.
 
 Every test needs a CUDA device and nvcc and skips itself without them.
 The file imports neither JAX nor the reference package, so it runs
@@ -381,6 +381,49 @@ def test_cuda_tau_kernels_match_plain_twins(cuda):
     args, _ = _tau_args(big, 8, None, cuda, False)
     with pytest.raises(ValueError, match="sparse=True"):
         tks.tau_window_call(*args, 0.1, n_steps=4, eps=0.03, fallback=10.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,sparse,rates,no_leap,n_steps,b", [
+    ("ring80", True, "sweep", True, 4096, 16384),
+    ("ring80", True, "shared", False, 1, 16384),  # a budget cut
+    ("lattice8x8", True, "sweep", False, 4096, 16384),
+    ("ring256", True, "shared", False, 4096, 8192),
+    ("ring8", True, "negative", False, 4096, 16384),
+    ("ring8", False, "negative", False, 4096, 1 << 19),
+    ("lv8", False, "sweep", True, 4096, 1 << 19),
+])
+def test_cuda_tau_kernels_take_lanes_from_the_ticket(cuda, name, sparse,
+                                                     rates, no_leap,
+                                                     n_steps, b):
+    """The redesigned tau kernels against their plain twins, bitwise, with
+    more lanes than one wave of the grid holds (lanes come from the
+    ticket: 16,384 warps' lanes are more than the sparse kernel's one
+    wave of 132 SMs x 2 blocks x 16, and 2^19 thread lanes more than the
+    dense kernel's 132 x 10 x 128): per-lane rates with half the lanes
+    pinned to exact steps, a budget cut, lattice8x8 and ring256 (the
+    sparse kernel's lanes a block follow the shape), and a negative rate
+    in a sweep (negative Poisson means, the scan from row 0)."""
+    rng = np.random.default_rng(6)
+    ts = _system(name)
+    r = (None if rates == "shared" else _rates(ts, b, rng, True)
+         if rates == "sweep" else _negative_sweep(ts, b, rng))
+    args, max_c = _tau_args(ts, b, r, cuda, sparse, no_leap)
+    call, plain, static = (
+        (tks.sparse_tau_window_call, tks.sparse_tau_window_plain,
+         {"max_c": max_c}) if sparse else
+        (tks.tau_window_call, tks.tau_window_plain, {}))
+    fb = 3.0 if name == "ring8" else 10.0
+    h = HORIZON[name]
+    kw = dict(n_steps=n_steps, eps=0.03, fallback=fb, **static)
+    k = call(*args, h, **kw)
+    assert call.grid_lanes < b
+    p = plain(*args, h, **kw)
+    torch.cuda.synchronize()
+    _assert_tau_bitwise(k, p, (name, sparse, rates))
+    assert int(k[4].sum()) > 0, name
+    live = (k[1] < h) & (k[2] == 0)
+    assert bool(live.any()) == (n_steps == 1), name
 
 
 @pytest.mark.cuda
