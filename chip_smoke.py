@@ -25,7 +25,11 @@ Phases (each prints its own lines; any failure exits non-zero):
              one whose reaction changes six species and a budget cut,
              each naming its route and the lanes taken from the ticket;
              the Match kernel on lv8 and ring80 with shared and per-lane
-             rates; the dense
+             rates, on a ragged last tile, fewer lanes than a tile, R = 9,
+             populations that are negative, NaN, 2^24 and above or
+             infinite, coefficients 3 to 7, operands off 16 bytes, and
+             on the "global" route M = 6 and a 70,000-species table, each
+             naming its route and tile; the dense
              tau-leap window on lv8 (shared and per-lane rates, the
              latter with half the lanes pinned to exact steps), ecoli,
              transport, a budget cut, ring8 with a negative rate in a
@@ -46,7 +50,7 @@ Phases (each prints its own lines; any failure exits non-zero):
 3c. match  — the Match entry point `kernels.ops.propensity` at full
              width on the populations that 3b ends with, shared and
              per-lane rates: launches (counter set to 0 just before),
-             kernel against twin, times and bound.
+             kernel against twin, route, tile, times and bound.
 3d. tau dense  — tau-leaping at the width and schedule of 3:
              simulate(Experiment(lv8, 2^20 replicas,
              method=Method.TAU_LEAP, use_kernel=True)).
@@ -178,6 +182,50 @@ def negative_sweep(system, n_lanes, seed):
     return rates
 
 
+def match_inputs(name, b, extreme, offset, rng, device):
+    """(x, idx, coef, shared rates, per-lane rates) of a Match case: a
+    system's tables (`system_of`), or raw ones, both on the "global"
+    route ("raw6": M = 6 slots, coefficients up to 7; "table70000":
+    70,000 species, R = 300, coefficients up to 6). Populations are counts
+    in [0, 300); `extreme` adds negatives, NaN, 2^24 and more, 1e30 and
+    +-inf. `offset` floats before x and the per-lane rates put them off
+    16 bytes."""
+    import numpy as np
+    import torch
+
+    if name in ("raw6", "table70000"):
+        s, r, m, c = ((50, 33, 6, 7) if name == "raw6"
+                      else (70_000, 300, 4, 6))
+        idx = rng.integers(0, s, (r, m)).astype(np.int32)
+        coef = rng.integers(1, c + 1, (r, m)).astype(np.int32)
+        coef[rng.random((r, m)) < 0.3] = 0
+        shared = rng.uniform(0.1, 2.0, r).astype(np.float32)
+    else:
+        system = system_of(name)
+        s, r = system.n_species, system.n_reactions
+        idx = system.reactant_idx.astype(np.int32)
+        coef = system.reactant_coef.astype(np.int32)
+        shared = system.rates
+    x = rng.integers(0, 300, (b, s)).astype(np.float32)
+    if extreme:
+        u = rng.random((b, s))
+        x[u < 0.05] = -rng.integers(1, 6, int((u < 0.05).sum()))
+        x[(u >= 0.05) & (u < 0.08)] = np.nan
+        big = (u >= 0.08) & (u < 0.14)
+        x[big] = rng.choice(np.float32([2**24, 2**24 + 2, 3e7, 1e30, np.inf,
+                                        -np.inf]), int(big.sum()))
+    per_lane = (shared[None] * rng.uniform(0.5, 1.5, (b, r))).astype(
+        np.float32)
+
+    def on_card(a):
+        flat = np.concatenate([np.zeros(offset, np.float32), a.reshape(-1)])
+        return torch.as_tensor(flat, device=device)[offset:].view(a.shape)
+
+    return (on_card(x), torch.as_tensor(idx, device=device),
+            torch.as_tensor(coef, device=device),
+            torch.as_tensor(shared, device=device), on_card(per_lane))
+
+
 def sweep_rates(system, n_lanes, seed):
     import numpy as np
 
@@ -240,15 +288,18 @@ def tau_inputs(system, n_lanes, seed, per_lane_rates, sparse, device,
 
 
 def bitwise_diff(outs_a, outs_b) -> tuple[int, float]:
-    """(number of differing elements, max abs difference) over two
-    tuples of tensors of the same shapes."""
+    """(number of differing elements, max abs difference where both are
+    finite) over two tuples of tensors of the same shapes."""
     import torch
 
     n_diff, err = 0, 0.0
     for a, b in zip(outs_a, outs_b):
         if a.dtype == torch.float32:
             n_diff += int((a.view(torch.int32) != b.view(torch.int32)).sum())
-            err = max(err, float((a.double() - b.double()).abs().max()))
+            both = torch.isfinite(a) & torch.isfinite(b)
+            if bool(both.any()):
+                err = max(err, float((a.double() - b.double())[both].abs()
+                                     .max()))
         else:
             n_diff += int((a != b).sum())
             err = max(err, float((a.long() - b.long()).abs().max()))
@@ -449,7 +500,10 @@ def phase_kernels(device) -> dict:
     )
     from repro_torch.core.reactions import sparse_tables
     from repro_torch.kernels.ops import propensity, system_kernel_tensors
-    from repro_torch.kernels.propensity import propensity_plain
+    from repro_torch.kernels.propensity import (
+        propensity_call,
+        propensity_plain,
+    )
     from repro_torch.kernels.ssa_step import (
         sparse_tau_window_call,
         sparse_tau_window_plain,
@@ -553,11 +607,46 @@ def phase_kernels(device) -> dict:
             p = propensity_plain(x, tens[0], tens[1], rates)
             n_diff, err = bitwise_diff((k,), (p,))
             log(f"[kernels] propensity {name} B={CHECK_LANES} rates="
-                f"{'(B,R)' if per_lane else '(R,)'}: {n_diff} differing "
-                f"elements, max abs err {err:g}")
+                f"{'(B,R)' if per_lane else '(R,)'} route "
+                f"{propensity_call.route}, tile {propensity_call.tile}: "
+                f"{n_diff} differing elements, max abs err {err:g}")
             if n_diff:
                 raise AssertionError(f"propensity and its twin disagree: "
                                      f"{name}")
+            worst["propensity"] = max(worst["propensity"], err)
+    # the Match's edges: ragged and short tiles, R = 9, populations that
+    # are negative, NaN, huge or infinite, coefficients 3, 4 and above,
+    # operands off 16 bytes, and the "global" route (M = 6, S = 70,000)
+    for name, b, extreme, offset, route in (
+            ("ring80", CHECK_LANES + 5, False, 0, "shared"),
+            ("ring80", 7, False, 0, "shared"),
+            ("lv8", 1001, False, 0, "shared"),
+            ("ring80", 3000, True, 0, "shared"),
+            ("ring80", 3000, True, 3, "shared"),
+            ("quartic", 3000, True, 0, "shared"),
+            ("raw6", 777, True, 0, "global"),
+            ("table70000", 300, True, 0, "global")):
+        x, idx, coef, shared, per_lane = match_inputs(
+            name, b, extreme, offset, rng, device)
+        for rates in (shared, per_lane):
+            k = propensity_call(x, idx, coef, rates)
+            p = propensity_plain(x, idx, coef, rates)
+            n_diff, err = bitwise_diff((k,), (p,))
+            log(f"[kernels] propensity {name} B={b} S={x.shape[1]} "
+                f"R={idx.shape[0]} M={idx.shape[1]} rates="
+                f"{'(B,R)' if rates.ndim == 2 else '(R,)'}"
+                f"{' extreme' if extreme else ''}"
+                f"{f' offset {offset}' if offset else ''} route "
+                f"{propensity_call.route}, tile {propensity_call.tile}: "
+                f"{n_diff} differing elements, max abs err {err:g}")
+            if n_diff or propensity_call.route != route:
+                raise AssertionError(f"propensity {name} B={b}: {n_diff} "
+                                     f"differing elements, route "
+                                     f"{propensity_call.route}")
+            if extreme and not (bool(torch.isnan(p).any())
+                                and bool(torch.isinf(p).any())):
+                raise AssertionError(f"propensity {name}: the extreme "
+                                     f"populations reach no NaN or inf")
             worst["propensity"] = max(worst["propensity"], err)
 
     def tau_case(sparse, name, rates, no_leap, horizon, n_steps, fallback,
@@ -932,8 +1021,10 @@ def phase_match(device, x, system) -> dict:
         n_bytes = nbytes(x, rates, tens[0], tens[1]) + b * r * 4
         bound, by, detail = bound_of(n_bytes, f_ops, 0)
         log(f"[match] propensity {SPARSE_MODEL} B={b} S={s} R={r} rates="
-            f"{label}: kernel {k_ms:.4f} ms, plain twin {p_ms:.3f} ms, 0 "
-            f"differing elements; bound {bound:.4f} ms ({detail})")
+            f"{label} route {propensity_call.route}, tile "
+            f"{propensity_call.tile} lanes: kernel {k_ms:.4f} ms, plain "
+            f"twin {p_ms:.3f} ms, 0 differing elements; bound {bound:.4f} ms "
+            f"({detail}), {bound / k_ms:.3f} of it")
         nums[label] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                            bound_by=by, err=err)
     out = dict(nums["(R,)"], launches=launches)

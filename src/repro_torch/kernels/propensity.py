@@ -12,7 +12,16 @@ gives the same bits on integer-valued float32 populations.
 
 For CUDA tensors the wrapper launches `kernels/csrc/propensity.cu` or
 raises; for CPU tensors it runs `propensity_plain`. Kernel and twin
-give the same bits. `propensity_call.launches` counts kernel launches.
+give the same bits. `propensity_call.launches` counts kernel launches;
+`.route` and `.tile` hold the route and lanes a tile of the last one.
+
+The kernel walks tiles of lanes on one of two routes, picked from the
+shape by `match_route` and by nothing else: "shared" stages a tile's
+population rows (double buffered) and the reaction tables in shared
+memory; "global" gathers from x, for systems whose tables plus two rows
+of one lane do not fit a block's shared memory, and for raw tables of
+more than MAX_REACTANTS slots a reaction (every system's tables have
+exactly MAX_REACTANTS).
 """
 from __future__ import annotations
 
@@ -28,10 +37,57 @@ from repro_torch.core.reactions import (
     ReactionSystem,
     comb_factors,
 )
-from repro_torch.kernels.ssa_step import check_operand, launch
+from repro_torch.kernels.ssa_step import (
+    SMEM_BLOCK_BYTES,
+    check_operand,
+    launch,
+)
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 4 + [ctypes.c_int] * 5 + [_P, _P]
+_ARGTYPES = [_P] * 4 + [ctypes.c_int] * 7 + [_P, _P]
+
+#: outputs a tile aims at: 32 for each of the block's 256 threads (on
+#: ring80 16 lanes a tile ran faster than 8 or 32; PERF.md)
+MATCH_TILE_OUTPUTS = 8192
+#: a tile's lanes x species and lanes x reactions stay below this, so the
+#: kernel indexes inside a tile in 32 bits
+MATCH_TILE_INDEX = 1 << 30
+
+
+def match_smem_bytes(s: int, r: int, lanes: int) -> int:
+    """Shared memory of the "shared" route's block: the packed table (one
+    int4 a reaction), the shared rates and two buffers of `lanes`
+    population rows, each part rounded up to 16 bytes."""
+    return 16 * (r + -(-r // 4) + 2 * -(-lanes * s // 4))
+
+
+def match_lanes_per_tile(s: int, r: int, m: int = MAX_REACTANTS) -> int:
+    """Lanes a tile of the Match kernel, from S, R and the slots M.
+
+    As many lanes as give MATCH_TILE_OUTPUTS outputs (rounded up to a
+    multiple of 4, so every whole tile's population rows start 16-byte
+    aligned for the kernel's 16-byte copies), fewer
+    where the "shared" route's block would pass SMEM_BLOCK_BYTES (then a
+    multiple of 4 where at least 4 fit). On the "global" route, the
+    lanes that give those outputs."""
+    want = -(-MATCH_TILE_OUTPUTS // r)
+    want = min(-(-want // 4) * 4,
+               (MATCH_TILE_INDEX - 1) // max(s, r))
+    if match_route(s, r, m) == "global":
+        return max(want, 1)
+    fit = min(want, (SMEM_BLOCK_BYTES - match_smem_bytes(s, r, 0))
+              // (8 * s))
+    while match_smem_bytes(s, r, fit) > SMEM_BLOCK_BYTES:
+        fit -= 1
+    return fit // 4 * 4 if fit >= 4 else fit
+
+
+def match_route(s: int, r: int, m: int = MAX_REACTANTS) -> str:
+    """"shared" where a reaction has at most MAX_REACTANTS slots and the
+    tables plus two population rows of one lane fit a block's shared
+    memory, else "global"."""
+    return ("shared" if m <= MAX_REACTANTS
+            and match_smem_bytes(s, r, 1) <= SMEM_BLOCK_BYTES else "global")
 
 
 def reactant_onehots(system: ReactionSystem) -> np.ndarray:
@@ -66,7 +122,7 @@ def propensity_call(x, idx, coef, rates):
     (R, M) int32 reactant tables; rates: (R,) shared or (B, R) per lane,
     float32. Coefficients above MAX_COEF are evaluated as the reference
     kernel does (unroll to MAX_COEF); `ops.system_kernel_tensors`
-    refuses such systems."""
+    refuses such systems. A live slot (coef > 0) names a species < S."""
     if x.device.type == "cpu":
         return propensity_plain(x, idx, coef, rates)
     if x.device.type != "cuda":
@@ -85,14 +141,20 @@ def propensity_call(x, idx, coef, rates):
     fn = load().propensity_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
+    route = match_route(s, r, m)
+    tile = match_lanes_per_tile(s, r, m)
     out = torch.empty((b, r), dtype=torch.float32, device=dev)
     err = launch(fn, dev, x.data_ptr(), idx.data_ptr(), coef.data_ptr(),
-                 rates.data_ptr(), int(per_lane), b, s, r, m, out.data_ptr())
+                 rates.data_ptr(), int(per_lane), b, s, r, m,
+                 int(route == "shared"), tile, out.data_ptr())
     if err != 0:
         raise RuntimeError(f"propensity kernel launch failed: CUDA error "
                            f"{err}")
     propensity_call.launches += 1
+    propensity_call.route, propensity_call.tile = route, tile
     return out
 
 
 propensity_call.launches = 0
+propensity_call.route = None
+propensity_call.tile = 0

@@ -255,10 +255,89 @@ def test_cuda_propensity_kernel_matches_plain_twin(cuda):
             before = tkp.propensity_call.launches
             k = tops.propensity(x, tens, rates)
             assert tkp.propensity_call.launches == before + 1
+            assert tkp.propensity_call.route == "shared"
             p = tkp.propensity_plain(x, tens[0], tens[1], rates)
             torch.cuda.synchronize()
             assert torch.equal(k.view(torch.int32), p.view(torch.int32)), \
                 (name, per_lane)
+
+
+def _match_tables(name, rng):
+    """(S, idx, coef, rates) int32/float32 numpy tables of a Match case:
+    a system's, or raw tables ("raw6": M = 6 slots, coefficients up to
+    7; "table70000": 70,000 species, R = 300, coefficients up to 6)."""
+    if name in ("raw6", "table70000"):
+        s, r, m, c = ((50, 33, 6, 7) if name == "raw6"
+                      else (70_000, 300, 4, 6))
+        idx = rng.integers(0, s, (r, m)).astype(np.int32)
+        coef = rng.integers(1, c + 1, (r, m)).astype(np.int32)
+        coef[rng.random((r, m)) < 0.3] = 0
+        return s, idx, coef, rng.uniform(0.1, 2.0, r).astype(np.float32)
+    ts = _system(name)
+    return (ts.n_species, ts.reactant_idx.astype(np.int32),
+            ts.reactant_coef.astype(np.int32), ts.rates)
+
+
+def _match_populations(rng, b, s, extreme):
+    """Counts in [0, 300); `extreme` adds negatives, NaN, 2^24 and more,
+    1e30 (squared: inf) and +-inf."""
+    x = rng.integers(0, 300, (b, s)).astype(np.float32)
+    if extreme:
+        u = rng.random((b, s))
+        x[u < 0.05] = -rng.integers(1, 6, int((u < 0.05).sum()))
+        x[(u >= 0.05) & (u < 0.08)] = np.nan
+        big = (u >= 0.08) & (u < 0.14)
+        x[big] = rng.choice(np.float32([2**24, 2**24 + 2, 3e7, 1e30, np.inf,
+                                        -np.inf]), int(big.sum()))
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,b,extreme,offset,route", [
+    ("ring80", 65_536 + 5, False, 0, "shared"),  # a ragged last tile
+    ("ring80", 7, False, 0, "shared"),  # fewer lanes than one tile
+    ("lv8", 1001, False, 0, "shared"),  # R = 9: stores not all 16 bytes
+    ("ring80", 3000, True, 0, "shared"),
+    ("ring80", 3000, True, 3, "shared"),  # x and rates off 16 bytes
+    ("quartic", 3000, True, 0, "shared"),  # coefficients 3 and 4
+    ("raw6", 777, True, 0, "global"),  # six slots a reaction
+    ("table70000", 300, True, 0, "global"),
+])
+def test_cuda_propensity_kernel_routes_match_plain_twin(cuda, name, b,
+                                                        extreme, offset,
+                                                        route):
+    """The Match kernel on each route against its plain twin, bit for
+    bit, shared and per-lane rates: ragged tiles, R not a multiple of 4,
+    negative, NaN, huge and infinite populations, coefficients up to 7,
+    operands not 16-byte aligned, a system too large for shared
+    memory."""
+    rng = np.random.default_rng(7)
+    s, idx, coef, shared = _match_tables(name, rng)
+    r = idx.shape[0]
+    tens = (torch.as_tensor(idx, device=cuda),
+            torch.as_tensor(coef, device=cuda))
+    xs = _match_populations(rng, b, s, extreme).reshape(-1)
+    x = torch.as_tensor(np.concatenate([np.zeros(offset, np.float32), xs]),
+                        device=cuda)[offset:].view(b, s)
+    for per_lane in (False, True):
+        rl = (shared[None] * rng.uniform(0.5, 1.5, (b, r))).astype(
+            np.float32).reshape(-1)
+        rates = (torch.as_tensor(np.concatenate(
+            [np.zeros(offset, np.float32), rl]), device=cuda)[offset:]
+                 .view(b, r) if per_lane
+                 else torch.as_tensor(shared, device=cuda))
+        before = tkp.propensity_call.launches
+        k = tkp.propensity_call(x, *tens, rates)
+        assert tkp.propensity_call.launches == before + 1
+        assert tkp.propensity_call.route == route
+        assert tkp.propensity_call.tile == tkp.match_lanes_per_tile(
+            s, r, idx.shape[1])
+        p = tkp.propensity_plain(x, *tens, rates)
+        torch.cuda.synchronize()
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32)), \
+            (name, b, per_lane)
+        if extreme:
+            assert bool(torch.isnan(p).any()) and bool(torch.isinf(p).any())
 
 
 @pytest.mark.cuda
