@@ -72,7 +72,25 @@ Phases (each prints its own lines; any failure exits non-zero):
              one full-width kernel launch against its plain twin on the
              same window, with the bound (and, for the sparse exact
              kernel, its route).
-4. report  — one JSON line of per-kernel numbers, the card line, then the
+4. supersteps — the main path of 3 with window_block=4,
+             pipeline_depth=2 and a checkpoint after every block:
+             launches = windows, dispatches = host syncs = blocks, no
+             checkpoint flushes the pipeline, records bitwise equal to
+             phase 3's. A save at window 4 while block 1 is in flight is
+             served from its entry snapshot, and block 1 is still
+             running when the save's copy is in; runs resumed from that
+             file and from a max_windows=4 run's save end with phase 3's
+             pool (x, t, ctr, ctr_hi) and records bit for bit. Wall per
+             window, host syncs per window and each block's dispatch and
+             collect walls at (W, K) = (1, 1), (4, 1), (4, 2), (8,
+             "auto"), each run twice in turns. The path of 3e with window_block=8 and depth "auto":
+             records bitwise equal to phase 3e's, the resolved depth and
+             its probe. One checkpoint's save time, size and restore
+             time at each of the two widths (files in a temporary
+             directory, removed at the end). host_loop=True on lv8 at
+             2^14 lanes: records and pool bitwise equal to the fused
+             path's, dispatches = launches = groups x windows.
+5. report  — one JSON line of per-kernel numbers, the card line, then the
              result line.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -815,7 +833,7 @@ def drive_main(exp, counter, label, device) -> tuple[dict, float]:
     if not rel <= MAIN_RTOL:
         raise AssertionError(f"{label}: record means disagree with float64")
     return dict(launches=launches, final_x=res2._engine._pool.x,
-                steps=list(steps), win_ms=win_ms), win_ms[0]
+                steps=list(steps), win_ms=win_ms, records=recs), win_ms[0]
 
 
 def time_against_twin(label, launch, plain, reps=5):
@@ -886,7 +904,7 @@ def phase_main(device) -> dict:
         f"{k_ms / win0_ms:.4f}")
     return dict(launches=nums["launches"], ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound, bound_by=by, err=err, steps=nums["steps"],
-                win_ms=nums["win_ms"])
+                win_ms=nums["win_ms"], records=nums["records"])
 
 
 def sparse_experiment(model):
@@ -1115,7 +1133,225 @@ def phase_tau(device, sparse: bool, exact: dict) -> dict:
         f"took {win0_ms:.3f} ms end to end, kernel share "
         f"{k_ms / win0_ms:.4f}")
     return dict(launches=nums["launches"], ms=k_ms, plain_ms=p_ms,
-                bound_ms=bound, bound_by=by, err=err)
+                bound_ms=bound, bound_by=by, err=err,
+                records=nums["records"])
+
+
+def records_equal(a, b) -> bool:
+    """Two record lists bit for bit: t, window, n, mean, var, ci90."""
+    return len(a) == len(b) and all(
+        (ra.t, ra.window, ra.n) == (rb.t, rb.window, rb.n)
+        and all(getattr(ra, f).tobytes() == getattr(rb, f).tobytes()
+                for f in ("mean", "var", "ci90"))
+        for ra, rb in zip(a, b))
+
+
+def timed_checkpoint(res, path) -> tuple[float, float, float]:
+    """(save s, file MB, restore s into a fresh engine of the same
+    experiment) for one checkpoint of a finished run `res`; the
+    restored pool must equal the saved one bit for bit."""
+    import os
+
+    import torch
+
+    from repro_torch.api import build_engine
+
+    eng = res._engine
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.checkpoint(path)
+    save_s = time.perf_counter() - t0
+    mb = os.path.getsize(path + ".npz") / 1e6
+    fresh = build_engine(res.experiment, device=eng.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for a, b in zip(eng._pool, fresh._pool):
+        if not torch.equal(a, b):
+            raise AssertionError("checkpoint: the restored pool differs")
+    return save_s, mb, restore_s
+
+
+def phase_supersteps(device, main_recs, tau_sparse_recs, card) -> None:
+    """Phase 4: supersteps, the depth-K collector, checkpoints and the
+    host loop at full width, held bit for bit against phases 3 and 3e."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.api import (
+        Ensemble,
+        Experiment,
+        Method,
+        Schedule,
+        build_engine,
+        simulate,
+    )
+    from repro_torch.core.cwc.models import MODELS
+    from repro_torch.kernels.ssa_step import ssa_window_call
+
+    main = Experiment(model=MODELS[MAIN_MODEL](),
+                      ensemble=Ensemble.make(replicas=MAIN_REPLICAS),
+                      schedule=Schedule(t_end=MAIN_T_END,
+                                        n_windows=MAIN_WINDOWS),
+                      n_lanes=1024, use_kernel=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # the main path in supersteps of 4 at depth 2, checkpointing
+        exp = main.with_(window_block=4, pipeline_depth=2)
+        n_blocks = MAIN_WINDOWS // 4
+        ck = f"{tmp}/main"
+        ssa_window_call.launches = 0
+        res = simulate(exp, device=device, checkpoint_path=ck)
+        launches = ssa_window_call.launches
+        t = res.telemetry
+        log(f"[supersteps] lv8 x {MAIN_REPLICAS}, window_block=4, "
+            f"pipeline_depth=2, checkpointing: {launches} kernel launches, "
+            f"{t.dispatches} dispatches, {t.host_syncs} host syncs, "
+            f"peak {t.peak_inflight_blocks} blocks in flight, "
+            f"{t.snapshot_saves} snapshot saves, {t.ckpt_flushes} flushes")
+        if launches != MAIN_WINDOWS:
+            raise AssertionError(f"supersteps: {launches} launches for "
+                                 f"{MAIN_WINDOWS} windows")
+        if not t.dispatches == t.host_syncs == n_blocks:
+            raise AssertionError("supersteps: dispatches or host syncs "
+                                 "differ from the blocks")
+        # every save but the last (after the final block, when nothing
+        # is in flight) is served from the next block's ring snapshot
+        if t.ckpt_flushes != 0 or t.snapshot_saves != n_blocks - 1:
+            raise AssertionError("supersteps: a checkpoint flushed")
+        if not records_equal(res.records, main_recs):
+            raise AssertionError("supersteps: records differ from the "
+                                 "per-window run's")
+        # a save at window 4 while block 1 (windows 4-7) is in flight:
+        # served from that block's entry snapshot, copied on a side
+        # stream, so block 1 must still be running when the copy is in
+        snap = f"{tmp}/snap"
+        eng = build_engine(exp, device=device)
+        eng.enable_snapshots()
+        eng.run_block()
+        eng.run_block()  # dispatches block 1, collects block 0
+        if not (len(eng._pending) == 1 and eng._window == 4):
+            raise AssertionError("supersteps: block 1 is not in flight")
+        eng.checkpoint(snap)
+        pull_s, running = eng.ckpt_pulls[-1]
+        log(f"[supersteps] a save at window 4 with block 1 in flight: "
+            f"{eng.n_snapshot_saves} snapshot save, {eng.n_ckpt_flushes} "
+            f"flushes, the pool's copy waited {pull_s * 1e3:.3f} ms and "
+            f"left {running} block running; {card}")
+        if eng.n_snapshot_saves != 1 or eng.n_ckpt_flushes != 0:
+            raise AssertionError("supersteps: the in-flight save was not "
+                                 "served from the snapshot")
+        if running != 1:
+            raise AssertionError("supersteps: the snapshot's copy waited "
+                                 "for the block in flight")
+        eng.flush()
+        if not records_equal(eng.stream.records(), main_recs):
+            raise AssertionError("supersteps: records differ after the "
+                                 "in-flight save")
+        pool = res._engine._pool
+        for label, path in (("the in-flight snapshot save", snap),
+                            ("a max_windows=4 run's save", f"{tmp}/cut")):
+            if path != snap:
+                simulate(exp, device=device, max_windows=4,
+                         checkpoint_path=path)
+            if int(np.load(path + ".npz")["window"]) != 4:
+                raise AssertionError(f"supersteps: {label} is not at "
+                                     "window 4")
+            rpool = simulate(exp, device=device, checkpoint_path=path,
+                             resume=True)
+            for f in ("x", "t", "ctr", "ctr_hi"):
+                if not bool((getattr(pool, f)
+                             == getattr(rpool._engine._pool, f)).all()):
+                    raise AssertionError(f"supersteps: pool {f} resumed "
+                                         f"from {label} differs")
+            if not records_equal(rpool.records, main_recs):
+                raise AssertionError(f"supersteps: records resumed from "
+                                     f"{label} differ")
+        log("[supersteps] records bitwise equal to phase 3's; runs "
+            "resumed from the in-flight snapshot save and from a "
+            "max_windows=4 run's save end with pool x, t, ctr, ctr_hi and "
+            "records bitwise equal")
+
+        # wall per window for each (W, K), in turns, no checkpoints
+        walls = {}
+        for wb, depth in ((1, 1), (4, 1), (4, 2), (8, "auto"),
+                          (8, "auto"), (4, 2), (4, 1), (1, 1)):
+            r = simulate(main.with_(window_block=wb, pipeline_depth=depth),
+                         device=device)
+            if not records_equal(r.records, main_recs):
+                raise AssertionError(f"supersteps: ({wb}, {depth}) records "
+                                     "differ")
+            t = r.telemetry
+            walls.setdefault((wb, depth), []).append(
+                (t.wall_time_s / MAIN_WINDOWS * 1e3,
+                 t.host_syncs / MAIN_WINDOWS, t.pipeline_depth,
+                 r._engine.depth_probe, t.block_walls))
+        for (wb, depth), runs in walls.items():
+            probe = runs[0][3]
+            log(f"[supersteps] (W, K) = ({wb}, {depth}): wall per window "
+                f"{[round(x[0], 3) for x in runs]} ms, host syncs per "
+                f"window {runs[0][1]:g}, depth {runs[0][2]}"
+                + (f", probe dispatch {probe['dispatch_s'] * 1e3:.3f} ms "
+                   f"pull {probe['pull_s'] * 1e3:.3f} ms host "
+                   f"{probe['host_s'] * 1e3:.3f} ms" if probe else "")
+                + f"; {card}")
+            for i, (_, _, _, _, bw) in enumerate(runs):
+                log(f"[supersteps]   run {i + 1} blocks (first window, "
+                    f"windows, dispatch ms, collect ms): "
+                    + ", ".join(f"({w0}, {n}, {d * 1e3:.3f}, "
+                                f"{c * 1e3:.3f})" for w0, n, d, c in bw))
+
+        # the sparse tau path in supersteps of 8 at depth "auto"
+        sp = Experiment(model=MODELS[SPARSE_MODEL](),
+                        ensemble=Ensemble.make(replicas=SPARSE_REPLICAS),
+                        schedule=Schedule(t_end=SPARSE_T_END,
+                                          n_windows=SPARSE_WINDOWS),
+                        n_lanes=1024, sparse=True, use_kernel=True,
+                        method=Method.TAU_LEAP, window_block=8,
+                        pipeline_depth="auto")
+        rs = simulate(sp, device=device)
+        if not records_equal(rs.records, tau_sparse_recs):
+            raise AssertionError("supersteps: ring80 tau records differ "
+                                 "from phase 3e's")
+        probe = rs._engine.depth_probe
+        log(f"[supersteps] ring80 x {SPARSE_REPLICAS} sparse tau, "
+            f"window_block=8, depth auto: records bitwise equal to phase "
+            f"3e's; resolved depth {rs.telemetry.pipeline_depth}, probe "
+            f"dispatch {probe['dispatch_s'] * 1e3:.3f} ms, pull "
+            f"{probe['pull_s'] * 1e3:.3f} ms, host "
+            f"{probe['host_s'] * 1e3:.3f} ms")
+
+        # one checkpoint's save, size and restore at each width
+        for label, r in (("lv8", res), ("ring80 tau", rs)):
+            save_s, mb, restore_s = timed_checkpoint(
+                r, f"{tmp}/{label.replace(' ', '_')}")
+            log(f"[supersteps] checkpoint {label}: save {save_s:.3f} s, "
+                f"{mb:.1f} MB, restore {restore_s:.3f} s; {card}")
+
+        # the host loop at 2^14 lanes against the fused path
+        small = main.with_(ensemble=Ensemble.make(replicas=1 << 14))
+        fused = simulate(small, device=device)
+        ssa_window_call.launches = 0
+        hl = simulate(small.with_(host_loop=True), device=device)
+        groups = (1 << 14) // small.n_lanes
+        if not records_equal(hl.records, fused.records):
+            raise AssertionError("host loop: records differ from fused")
+        if not (hl.telemetry.dispatches == ssa_window_call.launches
+                == groups * MAIN_WINDOWS):
+            raise AssertionError("host loop: dispatches differ from "
+                                 "groups x windows")
+        if not bool((hl._engine._pool.x == fused._engine._pool.x).all()):
+            raise AssertionError("host loop: final pool differs")
+        log(f"[supersteps] host_loop lv8 x {1 << 14}: {groups} groups x "
+            f"{MAIN_WINDOWS} windows = {hl.telemetry.dispatches} "
+            f"dispatches and launches; records and pool bitwise equal to "
+            f"the fused path's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -1146,6 +1382,7 @@ def main() -> int:
     match = phase_match(device, sparse.pop("final_x"), sparse.pop("system"))
     tau_dense = phase_tau(device, False, dense)
     tau_sparse = phase_tau(device, True, sparse)
+    phase_supersteps(device, dense["records"], tau_sparse["records"], card)
     entries = [
         ("ssa_window", "ssa_window.cu", "src/repro/kernels/ssa_step.py:64",
          dense),

@@ -23,20 +23,34 @@ from repro_torch.core.stream import StatsRecord
 class Telemetry:
     """Run telemetry.
 
-    dispatches: window advances (one per window; on the kernel path each
-    is one kernel launch).
-    host_syncs: blocking device->host copies (the combined per-window
-    record pull, plus samples, grouped stats and predictive costs).
+    dispatches: pool advances — one per window on the per-window path
+    (on the kernel path each is one kernel launch), one per (group x
+    window) under host_loop, one per block under supersteps
+    (window_block=W).
+    host_syncs: blocking device->host waits. Per window: the combined
+    record pull, plus samples, grouped stats and predictive costs;
+    under supersteps ONE per block (the wait on the block's ring).
     window_wall_times: per-window host wall to enqueue the window's
-    device work; on the kernel path this excludes device compute, which
-    the record pull then waits for.
-    block_walls: (window, 1, dispatch_s, collect_s) rows; collect_s is
-    the blocking pull plus host-side emit.
+    device work on the per-window paths (excluding device compute,
+    which the record pull then waits for); under supersteps 1/W of the
+    block's enqueue + ring-wait wall.
+    block_walls: (first_window, n_windows, dispatch_s, collect_s) rows,
+    one per window on the per-window paths and one per block under
+    supersteps; dispatch_s is the host wall to enqueue, collect_s the
+    blocking pull plus host-side emit.
     steps_per_window: pool-total solver iterations that advanced a lane
     per window (exact SSA: events fired; tau-leaping: accepted leaps
     plus fired exact steps).
     leaps_per_window: accepted tau-leaps per window (zero on exact
     SSA); steps - leaps is tau-leaping's exact-fallback share.
+    pipeline_depth: the resolved in-flight block budget ("auto" probes
+    the first block); pipeline_depth_effective: the depth the collector
+    ran at; peak_inflight_blocks: the most rings queued at once.
+    snapshot_saves / ckpt_flushes: checkpoints served from a ring
+    snapshot / that had to flush the pipeline.
+
+    The reference's straggler_*, restarts and stall_redispatches fields
+    come with supervision (ROADMAP queue 1, item 15).
     """
 
     wall_time_s: float
@@ -48,6 +62,11 @@ class Telemetry:
     steps_per_window: tuple = ()
     leaps_per_window: tuple = ()
     block_walls: tuple = ()
+    pipeline_depth: int = 1
+    pipeline_depth_effective: int = 1
+    peak_inflight_blocks: int = 0
+    snapshot_saves: int = 0
+    ckpt_flushes: int = 0
 
 
 def _peak_rss_bytes() -> int:
@@ -62,23 +81,53 @@ class SimulationResult:
         self._wall_time = 0.0
 
     # ------------------------------------------------------------ run
-    def resume(self, max_windows: Optional[int] = None
-               ) -> "SimulationResult":
+    def resume(self, max_windows: Optional[int] = None,
+               checkpoint_path: Optional[str] = None) -> "SimulationResult":
         """Advance the experiment, at most `max_windows` windows (all
-        remaining if None). Returns self for chaining."""
+        remaining if None), checkpointing after every window — or every
+        collected block — when a path is given. Returns self.
+
+        With `window_block > 1` the run advances in pipelined
+        supersteps: up to `pipeline_depth` blocks are dispatched ahead
+        of the oldest ring pull. A `checkpoint_path` then saves after
+        every collected block, on that block's boundary, from the
+        in-flight ring's entry snapshot (engine.enable_snapshots): a
+        save flushes nothing and waits only for the copy of that
+        snapshot's pool to the host (engine.ckpt_pulls), not for the
+        blocks in flight. `max_windows` may cut the
+        final block short; such a checkpoint rolls back to the cut
+        block's boundary."""
         eng = self._engine
         t0 = time.perf_counter()
         done = 0
         try:
-            while eng._window < len(eng.grid) and (
-                    max_windows is None or done < max_windows):
-                eng.run_window()
-                done += 1
+            if eng.cfg.window_block == 1:
+                while eng._window < len(eng.grid) and (
+                        max_windows is None or done < max_windows):
+                    eng.run_window()
+                    done += 1
+                    if checkpoint_path:
+                        eng.checkpoint(checkpoint_path)
+            else:
+                limit = len(eng.grid) if max_windows is None else min(
+                    len(eng.grid), eng._window + max_windows)
+                if checkpoint_path:
+                    eng.enable_snapshots()
+                while eng._window < limit:
+                    got = eng.run_block(dispatch_limit=limit)
+                    if checkpoint_path and got:
+                        eng.checkpoint(checkpoint_path)
+                eng.flush()
         finally:
             self._wall_time += time.perf_counter() - t0
         if self.completed:
             eng.stream.close()
         return self
+
+    def checkpoint(self, path: str) -> None:
+        """Serialise pool + scheduler + emitted records to `path`, in
+        the format both packages restore."""
+        self._engine.checkpoint(path)
 
     @property
     def completed(self) -> bool:
@@ -140,7 +189,12 @@ class SimulationResult:
             peak_rss_bytes=_peak_rss_bytes(),
             steps_per_window=tuple(eng.window_steps),
             leaps_per_window=tuple(eng.window_leaps),
-            block_walls=tuple(eng.block_walls))
+            block_walls=tuple(eng.block_walls),
+            pipeline_depth=eng.pipeline_depth,
+            pipeline_depth_effective=eng.pipeline_depth_effective,
+            peak_inflight_blocks=eng.peak_inflight_blocks,
+            snapshot_saves=eng.n_snapshot_saves,
+            ckpt_flushes=eng.n_ckpt_flushes)
 
     def __repr__(self) -> str:
         state = "completed" if self.completed else (

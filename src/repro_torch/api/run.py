@@ -4,11 +4,13 @@
 Resolves the typed spec onto `SimulationEngine` (schema/policy enums ->
 engine strings, sweep -> per-instance rate matrix, PER_POINT ->
 instance group ids), attaches sinks, and drives the window loop through
-the returned `SimulationResult`. Runs on the CUDA device unless the
-caller passes `device="cpu"`; with no device and no GPU it raises.
+the returned `SimulationResult`, so checkpoint/resume and partial runs
+share one code path. Runs on the CUDA device unless the caller passes
+`device="cpu"`; with no device and no GPU it raises.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 from repro_torch.api.result import SimulationResult
@@ -45,13 +47,16 @@ def build_engine(experiment: Experiment, device=None) -> SimulationEngine:
             seed=experiment.seed,
             max_steps_per_window=sched.max_steps_per_window,
             use_kernel=experiment.use_kernel,
+            host_loop=experiment.host_loop,
             sparse=experiment.sparse,
             kernel_chunk_steps=experiment.kernel_chunk_steps,
             kernel_max_chunks=experiment.kernel_max_chunks,
             stat_blocks=part.blocks if part is not None else 1,
             method=experiment.method.value,
             tau_eps=float(experiment.tau_eps),
-            tau_fallback=float(experiment.tau_fallback))
+            tau_fallback=float(experiment.tau_fallback),
+            window_block=experiment.window_block,
+            pipeline_depth=experiment.pipeline_depth)
         group_ids = (ens.group_ids()
                      if experiment.reduction is Reduction.PER_POINT
                      else None)
@@ -79,16 +84,35 @@ def simulate(experiment: Experiment, *, device=None,
              checkpoint_path: Optional[str] = None,
              resume: bool = False) -> SimulationResult:
     """Run an Experiment end to end on `device` (default: the CUDA
-    device; raises when there is none). `max_windows` stops after that
-    many windows; the returned handle's `.resume()` continues the run
-    in-process. Checkpoints (`checkpoint_path`, `resume`) are not ported
-    yet and raise."""
-    if checkpoint_path or resume:
-        raise ExperimentError(
-            "checkpoint_path / resume are not ported to repro_torch yet "
-            "(ROADMAP queue 1, item 8, checkpoints)")
+    device; raises when there is none).
+
+    checkpoint_path: checkpoint after every window (every collected
+    block under supersteps), and the restore source when resume=True.
+    resume: restore pool/records from checkpoint_path before running —
+    the file must exist, and may come from either package; records
+    emitted before the checkpoint are replayed into the result buffer
+    AND into this run's sinks (a fresh CsvSink starts from an empty
+    file, so the replay keeps it complete).
+    max_windows: stop after this many windows; the returned handle's
+    `.resume()` continues the same run in-process.
+    """
     engine = build_engine(experiment, device=device)
+    if resume:
+        if not checkpoint_path:
+            raise ExperimentError("resume=True requires checkpoint_path")
+        path = (checkpoint_path if checkpoint_path.endswith(".npz")
+                else checkpoint_path + ".npz")
+        if not os.path.exists(path):
+            raise ExperimentError(
+                f"resume=True but no checkpoint at {path!r}")
+        try:
+            engine.restore(checkpoint_path)
+        except ValueError as e:
+            # e.g. a mid-block checkpoint under window_block > 1
+            raise ExperimentError(str(e)) from e
     for sink in experiment.sinks:
         engine.stream.attach(sink)
+        for rec in engine.stream.records():  # replay restored windows
+            sink(rec)
     return SimulationResult(experiment, engine).resume(
-        max_windows=max_windows)
+        max_windows=max_windows, checkpoint_path=checkpoint_path)

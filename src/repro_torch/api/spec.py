@@ -216,9 +216,15 @@ class Experiment:
     must cover, else the lane takes one exact step). Both run dense or
     sparse, through the kernels or the unfused loop.
 
-    sketch, steering, recovery, host_loop, window_block > 1,
-    pipeline_depth != 1 and a multi-shard partitioning are not ported
-    yet and are refused by validate().
+    host_loop: the reference's per-group gather/advance/scatter
+    baseline (one kernel launch per group and window with use_kernel).
+    window_block: supersteps — this many windows queued as one dispatch
+    with one host sync per block; pipeline_depth: blocks kept in flight
+    (an int >= 1, or "auto" to probe). Records are bitwise identical
+    for any window_block and pipeline_depth.
+
+    sketch, steering, recovery and a multi-shard partitioning are not
+    ported yet and are refused by validate().
     """
 
     model: Union[CWCModel, ReactionSystem]
@@ -280,6 +286,21 @@ class Experiment:
                 raise ExperimentError(
                     f"Experiment.{name} must be >= 1, got "
                     f"{getattr(self, name)}")
+        if self.window_block > 1 and self.host_loop:
+            raise ExperimentError(
+                "window_block > 1 needs the fused or sharded dispatch "
+                "strategy; host_loop is the per-window round-trip "
+                "baseline (set window_block=1)")
+        if isinstance(self.pipeline_depth, str):
+            if self.pipeline_depth != "auto":
+                raise ExperimentError(
+                    f"Experiment.pipeline_depth must be an int >= 1 or "
+                    f"'auto', got {self.pipeline_depth!r}")
+        elif (not isinstance(self.pipeline_depth, int)
+                or self.pipeline_depth < 1):
+            raise ExperimentError(
+                f"Experiment.pipeline_depth must be an int >= 1 or "
+                f"'auto', got {self.pipeline_depth!r}")
         if not self.tau_eps > 0:
             raise ExperimentError(
                 f"Experiment.tau_eps must be > 0, got {self.tau_eps}")
@@ -312,12 +333,6 @@ class Experiment:
              "partitioning with n_shards > 1", "item 14, sharded farm"),
             (self.recovery is not None, "recovery",
              "items 15-16, supervision and the multi-process farm"),
-            (self.window_block > 1, "window_block > 1",
-             "item 9, supersteps"),
-            (self.pipeline_depth != 1, "pipeline_depth != 1",
-             "item 9, supersteps"),
-            (self.host_loop, "host_loop=True",
-             "item 9, dispatch strategies"),
         ]
         for hit, what, item in unported:
             if hit:

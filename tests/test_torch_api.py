@@ -183,10 +183,6 @@ def test_fused_window_truncation_raises_in_both():
     (dict(steering=object()), "item 13"),
     (dict(partitioning=T.Partitioning(n_shards=2)), "item 14"),
     (dict(recovery=object()), "items 15-16"),
-    (dict(window_block=2), "item 9"),
-    (dict(pipeline_depth=2), "item 9"),
-    (dict(pipeline_depth="auto"), "item 9"),
-    (dict(host_loop=True), "item 9"),
 ])
 def test_unported_options_raise(changes, item):
     exp = T.Experiment(model=T_MODELS["lv2"](),
@@ -198,14 +194,40 @@ def test_unported_options_raise(changes, item):
         T.simulate(exp, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(checkpoint_path="ck"),
-                                dict(resume=True)])
-def test_checkpoint_arguments_raise(kw):
-    exp = T.Experiment(model=T_MODELS["lv2"](),
-                       ensemble=T.Ensemble.make(replicas=4),
-                       schedule=T.Schedule(t_end=1.0, n_windows=2))
-    with pytest.raises(T.ExperimentError, match="item 8"):
-        T.simulate(exp, device="cpu", **kw)
+@pytest.mark.parametrize("api", [J, T], ids=["reference", "port"])
+@pytest.mark.parametrize("case,match", [
+    ("no_path", "resume=True requires checkpoint_path"),
+    ("missing_file", "resume=True but no checkpoint at"),
+    ("mid_block", "mid-block for window_block=2"),
+])
+def test_resume_errors_match_reference(tmp_path, api, case, match):
+    """simulate(resume=True) refuses, in both packages alike: without a
+    checkpoint_path, without the file, and with a file cut mid-block
+    for the run's window_block (a window-3 checkpoint under 2)."""
+    models = J_MODELS if api is J else T_MODELS
+    kw = {} if api is J else {"device": "cpu"}
+    exp = api.Experiment(model=models["lv2"](),
+                         ensemble=api.Ensemble.make(replicas=4),
+                         schedule=api.Schedule(t_end=0.2, n_windows=4))
+    ck = str(tmp_path / "ck")
+    if case == "mid_block":
+        api.simulate(exp, max_windows=3, checkpoint_path=ck, **kw)
+        exp = exp.with_(window_block=2)
+    with pytest.raises(api.ExperimentError, match=match):
+        api.simulate(exp, checkpoint_path=None if case == "no_path" else ck,
+                     resume=True, **kw)
+
+
+@pytest.mark.parametrize("api", [J, T], ids=["reference", "port"])
+def test_window_block_with_host_loop_raises(api):
+    models = J_MODELS if api is J else T_MODELS
+    exp = api.Experiment(model=models["lv2"](),
+                         ensemble=api.Ensemble.make(replicas=4),
+                         schedule=api.Schedule(t_end=1.0, n_windows=2),
+                         window_block=2, host_loop=True)
+    with pytest.raises(api.ExperimentError,
+                       match="window_block > 1 needs the fused or sharded"):
+        api.simulate(exp, **({} if api is J else {"device": "cpu"}))
 
 
 def test_spec_fields_and_defaults_match_reference():

@@ -2,8 +2,10 @@
 window, Match, dense and sparse tau-leap windows) against its plain
 twin, the sparse kernels against the dense ones, the tau kernel with an
 unreachable leap threshold against the exact kernel, the persistent
-lanes' ticket, and the fused-kernel engine paths against the unfused
-ones, bit for bit on one device.
+lanes' ticket, the fused-kernel engine paths against the unfused
+ones, and each window kernel's path through supersteps (pinned rings,
+one host sync per block) and through a checkpoint and resume, bit for
+bit on one device.
 
 Every test needs a CUDA device and nvcc and skips itself without them.
 The file imports neither JAX nor the reference package, so it runs
@@ -567,3 +569,104 @@ def test_cuda_simulate_tau_kernel_path_matches_unfused(cuda, sparse):
         assert getattr(fused.telemetry, f) == getattr(unfused.telemetry, f)
     assert sum(fused.telemetry.leaps_per_window) > 0
     assert (fused.final_state() == unfused.final_state()).all()
+
+
+def _pool_equal(a, b, what):
+    for f, x, y in zip(tg.LaneState._fields, a, b):
+        assert torch.equal(x, y), (what, f)
+
+
+def _records_equal(a, b, what):
+    assert len(a.records) == len(b.records), what
+    for ra, rb in zip(a.records, b.records):
+        assert (ra.t, ra.window, ra.n) == (rb.t, rb.window, rb.n), what
+        for f in ("mean", "var", "ci90"):
+            assert getattr(ra, f).tobytes() == getattr(rb, f).tobytes(), \
+                (what, f)
+
+
+_CARD_CASES = [  # model, method, sparse, sweep: one per window kernel
+    ("lv8", "exact", False, None),
+    ("lv8", "exact", True, {"reproduce": [0.8, 1.2]}),
+    ("ring8", "exact", True, None),
+    ("lv8", "tau_leap", False, {"reproduce": [0.8, 1.2]}),
+    ("ring8", "tau_leap", True, None),
+]
+
+
+def _card_exp(name, method, sparse, sweep, **kw):
+    return T.Experiment(
+        model=MODELS[name](),
+        ensemble=T.Ensemble.make(replicas=256, sweep=sweep),
+        schedule=T.Schedule(t_end=6 * HORIZON[name], n_windows=6),
+        n_lanes=128, seed=8, use_kernel=True, method=method, sparse=sparse,
+        **kw)
+
+
+def _window_call(method, sparse):
+    if method == "tau_leap":
+        return tks.sparse_tau_window_call if sparse else tks.tau_window_call
+    return tks.sparse_window_call if sparse else tks.ssa_window_call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,method,sparse,sweep", _CARD_CASES)
+def test_cuda_kernel_path_checkpoint_resumes_bitwise(cuda, tmp_path, name,
+                                                     method, sparse, sweep):
+    """A kernel-path run in supersteps of 2 at depth 2, checkpointed at
+    window 2 while two blocks are in flight (the save served from the
+    oldest ring's entry snapshot, on a side stream) and resumed in a
+    fresh engine — which rebinds the kernel's tables to the restored
+    rates — ends with the uninterrupted run's pool and records, bit for
+    bit. The entry pool, held by reference, is unchanged after every
+    block ran: no kernel writes a pool leaf in place."""
+    exp = _card_exp(name, method, sparse, sweep, window_block=2,
+                    pipeline_depth=2)
+    clean = T.simulate(exp)
+    eng = T.build_engine(exp)
+    eng.enable_snapshots()
+    entry = eng._pool
+    held = [a.clone() for a in entry]
+    for _ in range(3):
+        eng.run_block()  # dispatch b0, b1, then b2 and collect b0
+    assert len(eng._pending) == 2 and eng._window == 2
+    ck = str(tmp_path / "ck")
+    eng.checkpoint(ck)
+    assert len(eng._pending) == 2 and eng._window == 2
+    assert eng.n_snapshot_saves == 1 and eng.n_ckpt_flushes == 0
+    assert len(eng.ckpt_pulls) == 1
+    assert int(np.load(ck + ".npz")["window"]) == 2
+    eng.flush()
+    assert eng._window == 6
+    for f, a, b in zip(tg.LaneState._fields, held, entry):
+        assert torch.equal(a, b), (name, f)
+    call = _window_call(method, sparse)
+    before = call.launches
+    resumed = T.simulate(exp, checkpoint_path=ck, resume=True)
+    assert call.launches == before + 4
+    per_lane = resumed._engine._rates_dev.ndim == 2
+    assert per_lane == (sweep is not None)
+    _pool_equal(clean._engine._pool, resumed._engine._pool, name)
+    _records_equal(clean, resumed, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,method,sparse,sweep", _CARD_CASES)
+def test_cuda_supersteps_bitwise_one_sync_per_block(cuda, name, method,
+                                                    sparse, sweep):
+    """window_block=3 at pipeline_depth=2 on the card (rings copied into
+    pinned host memory, waited on by event) against the per-window
+    path: records and pool bit for bit, one launch per window, one
+    dispatch and one host sync per block."""
+    base = T.simulate(_card_exp(name, method, sparse, sweep))
+    call = _window_call(method, sparse)
+    before = call.launches
+    got = T.simulate(_card_exp(name, method, sparse, sweep, window_block=3,
+                               pipeline_depth=2))
+    assert call.launches == before + 6
+    t = got.telemetry
+    assert t.dispatches == t.host_syncs == 2
+    assert t.peak_inflight_blocks == 2
+    _records_equal(base, got, name)
+    assert got.telemetry.steps_per_window == base.telemetry.steps_per_window
+    _pool_equal(base._engine._pool, got._engine._pool, name)
