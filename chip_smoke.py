@@ -90,7 +90,26 @@ Phases (each prints its own lines; any failure exits non-zero):
              directory, removed at the end). host_loop=True on lv8 at
              2^14 lanes: records and pool bitwise equal to the fused
              path's, dispatches = launches = groups x windows.
-5. report  — one JSON line of per-kernel numbers, the card line, then the
+5. sketches and steering — 5a: lv8 at the width of 3 as a sweep of 8
+             points x 2^17 replicas over `die`, PER_POINT, window_block=4,
+             a SketchSpec: each window's histogram and rare counts equal a
+             numpy recount of the pulled observables (the reciprocal-multiply
+             rule), each group's total its lanes; then steered
+             (early stop at a tolerance between the smallest and the largest
+             point's relative CI at the first decision point, reallocation,
+             bimodality): a point stops and its lanes move, a rerun repeats
+             the decision log, records and sketches bit for bit,
+             `Steering()` gives the unsteered records, and a run dropped
+             after its first decision and restored into a new engine ends
+             as the uninterrupted one. 5b: the cell of 3d with
+             `Steering(tau_switch=True)` (lanes pinned per decision, ms per
+             window against 3d's), and with tau_fallback=1e6 every lane
+             pinned with records equal to the unpinned run's. 5c: the cell
+             of 3b with a SketchSpec: records equal to 3b's, totals = lanes.
+             Launches = windows in every run; ms per window steered and
+             unsteered, the decision point's wall and the sketch's own ms
+             per window (CUDA events).
+6. report  — one JSON line of per-kernel numbers, the card line, then the
              result line.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -129,6 +148,11 @@ SPARSE_WINDOWS = 8
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS = 132 * 128 * 1.98e9
 PEAK_I32_OPS = 67e12 / 4
+# phase 5a: the dense main path as a sweep of STEER_POINTS points
+STEER_RATE = "die"
+STEER_VALUES = (0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
+SKETCH_BINS = 32
+SKETCH_THRESHOLDS = (500.0, 2000.0)
 # rows between checkpoints of the sparse kernel's a0 fold
 # (kernels/csrc/sparse_step.cuh)
 CK_ROWS = 32
@@ -825,6 +849,8 @@ def drive_main(exp, counter, label, device) -> tuple[dict, float]:
     means2 = np.stack([r.mean for r in res2.records])
     if means.tobytes() != means2.tobytes():
         raise AssertionError(f"{label}: a second run gave different means")
+    if res.steering_report() != res2.steering_report():
+        raise AssertionError(f"{label}: a second run decided otherwise")
     traj = res2.trajectories()  # (I, T, n_obs)
     ref = traj.astype(np.float64).mean(axis=0)
     rel = float(np.max(np.abs(means2 - ref) / np.maximum(np.abs(ref), 1)))
@@ -833,7 +859,8 @@ def drive_main(exp, counter, label, device) -> tuple[dict, float]:
     if not rel <= MAIN_RTOL:
         raise AssertionError(f"{label}: record means disagree with float64")
     return dict(launches=launches, final_x=res2._engine._pool.x,
-                steps=list(steps), win_ms=win_ms, records=recs), win_ms[0]
+                steps=list(steps), win_ms=win_ms, records=recs,
+                report=res.steering_report()), win_ms[0]
 
 
 def time_against_twin(label, launch, plain, reps=5):
@@ -1003,7 +1030,8 @@ def phase_sparse(device) -> dict:
     sparse_full_width(sparse_experiment(cell_ring_model(256)),
                       "sparse ring256", device, twin=False)
     return dict(one, launches=nums["launches"], final_x=nums["final_x"],
-                steps=nums["steps"], win_ms=nums["win_ms"])
+                steps=nums["steps"], win_ms=nums["win_ms"],
+                records=nums["records"])
 
 
 def phase_match(device, x, system) -> dict:
@@ -1134,7 +1162,7 @@ def phase_tau(device, sparse: bool, exact: dict) -> dict:
         f"{k_ms / win0_ms:.4f}")
     return dict(launches=nums["launches"], ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound, bound_by=by, err=err,
-                records=nums["records"])
+                records=nums["records"], win_ms=nums["win_ms"])
 
 
 def records_equal(a, b) -> bool:
@@ -1354,6 +1382,302 @@ def phase_supersteps(device, main_recs, tau_sparse_recs, card) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def steer_experiment(**kw):
+    """Phase 5a's experiment: the dense main path as a sweep of
+    len(STEER_VALUES) points over STEER_RATE at the width of phase 3,
+    per-point statistics, supersteps of 4, a sketch."""
+    from repro_torch.api import (
+        Ensemble,
+        Experiment,
+        Reduction,
+        Schedule,
+        SketchSpec,
+    )
+    from repro_torch.core.cwc.models import MODELS
+
+    return Experiment(
+        model=MODELS[MAIN_MODEL](),
+        ensemble=Ensemble.make(
+            replicas=MAIN_REPLICAS // len(STEER_VALUES),
+            sweep={STEER_RATE: list(STEER_VALUES)}),
+        schedule=Schedule(t_end=MAIN_T_END, n_windows=MAIN_WINDOWS),
+        reduction=Reduction.PER_POINT, n_lanes=1024, use_kernel=True,
+        window_block=4,
+        sketch=SketchSpec(n_bins=SKETCH_BINS, thresholds=SKETCH_THRESHOLDS),
+        **kw)
+
+
+def sketches_equal(a, b) -> bool:
+    """Two WindowSketch lists bit for bit."""
+    return len(a) == len(b) and all(
+        x.hist.tobytes() == y.hist.tobytes()
+        and (x.rare is None) == (y.rare is None)
+        and (x.rare is None or x.rare.tobytes() == y.rare.tobytes())
+        for x, y in zip(a, b))
+
+
+def recount_sketches(res) -> None:
+    """Hold each window's sketch against a numpy recount of the pulled
+    observables: bin = clamp(floor((obs - lo) * inv_width)), the
+    reference engine's reciprocal multiply; each group's histogram
+    total is its lane count."""
+    import numpy as np
+
+    eng = res._engine
+    sk = eng._sketch
+    gids = eng._group_ids.astype(np.int64)
+    n_groups = int(gids.max()) + 1
+    traj = res.trajectories()  # (I, T, n_obs)
+    n_obs = traj.shape[2]
+    row = gids[:, None] * n_obs + np.arange(n_obs)
+    lanes = np.bincount(gids, minlength=n_groups)
+    for w, got in enumerate(res.sketches()):
+        obs = traj[:, w, :]
+        b = np.clip(np.floor((obs - sk.lo) * sk.inv_width), 0,
+                    sk.n_bins - 1).astype(np.int64)
+        hist = np.bincount((row * sk.n_bins + b).ravel(),
+                           minlength=n_groups * n_obs * sk.n_bins)
+        if not (got.hist.reshape(-1) == hist).all():
+            raise AssertionError(f"sketch: window {w}'s histogram differs "
+                                 "from the numpy recount")
+        for k, level in enumerate(sk.thresholds):
+            rare = np.bincount(row.ravel(), weights=(obs >= level).ravel(),
+                               minlength=n_groups * n_obs)
+            if not (got.rare[..., k].reshape(-1) == rare).all():
+                raise AssertionError(f"sketch: window {w}'s count at or "
+                                     f"above {level} differs")
+        if not (got.hist.sum(axis=-1) == lanes[:, None]).all():
+            raise AssertionError(f"sketch: window {w}'s totals differ from "
+                                 "the groups' lanes")
+
+
+def phase_steering(device, card) -> None:
+    """Phase 5a: sketches and steering on the dense main path as a
+    sweep, at full width."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (
+        SimulationResult,
+        Steering,
+        build_engine,
+        simulate,
+    )
+    from repro_torch.kernels.ssa_step import ssa_window_call
+
+    exp = steer_experiment()
+    n_points = len(STEER_VALUES)
+    label = "steer"
+
+    def timed(e):
+        ssa_window_call.launches = 0
+        r = simulate(e, device=device)
+        if ssa_window_call.launches != MAIN_WINDOWS:
+            raise AssertionError(f"{label}: {ssa_window_call.launches} "
+                                 f"launches for {MAIN_WINDOWS} windows")
+        if len(r.records) != MAIN_WINDOWS or not all(
+                np.isfinite(v).all() for x in r.records
+                for v in (x.mean, x.var, x.ci90)):
+            raise AssertionError(f"{label}: records missing or not finite")
+        return r, r.telemetry.wall_time_s / MAIN_WINDOWS * 1e3
+
+    base, base_ms = timed(exp)
+    chk = simulate(exp.with_(record_trajectories=True), device=device)
+    if not (records_equal(chk.records, base.records)
+            and sketches_equal(chk.sketches(), base.sketches())):
+        raise AssertionError(f"{label}: a rerun gave other records or "
+                             "sketches")
+    recount_sketches(chk)
+    del chk
+    eng = base._engine
+    sk = eng._sketch
+    obs = eng._observe()
+    sketch_ms = cuda_ms(lambda: eng._sketch_eval(obs), reps=10)
+    log(f"[{label}] lv8 x {MAIN_REPLICAS} as {n_points} points x "
+        f"{MAIN_REPLICAS // n_points} over {STEER_RATE}={list(STEER_VALUES)},"
+        f" window_block=4, {sk.n_bins} bins, thresholds "
+        f"{list(SKETCH_THRESHOLDS)}: {MAIN_WINDOWS} launches; every window's "
+        f"histogram and rare counts equal the numpy recount, totals = lanes;"
+        f" unsteered {base_ms:.3f} ms per window; the sketch alone "
+        f"{sketch_ms:.4f} ms per window ({obs.shape[0]} x {obs.shape[1]} "
+        f"observables); {card}")
+
+    # the tolerance: between the smallest and the largest point's
+    # relative CI at the first decision point (window 4's boundary)
+    pp = base.per_point()
+    rel = (pp["ci90"][3].astype(np.float64) / np.maximum(
+        np.abs(pp["mean"][3].astype(np.float64)), 1.0)).max(axis=1)
+    tol = float(np.sqrt(rel.min() * rel.max()))
+    margins = [round(float(abs(r - tol) / tol), 4) for r in rel]
+    log(f"[{label}] relative CI per point at window 4: "
+        f"{[round(float(r), 6) for r in rel]}; ci_rel_tol {tol:.6g}; "
+        f"margins |rel - tol| / tol {margins}")
+    steer = Steering(ci_rel_tol=tol, min_windows=4, reallocate=True,
+                     bimodality=True)
+    sexp = exp.with_(steering=steer)
+    steered, steered_ms = timed(sexp)
+    rep = steered.steering_report()
+    moved = [d for d in rep["decisions"] if d["action"] == "reallocate"]
+    if not rep["stopped_points"] or not moved:
+        raise AssertionError(f"{label}: no point stopped or no lanes moved "
+                             f"({rep['decisions']})")
+    # the rerun, with the decision point's wall (device work included)
+    # and the policy's own host time within it
+    walls, decide_walls = [], []
+    eng2 = build_engine(sexp, device=device)
+    boundary, decide = eng2._steer_boundary, eng2._steer.decide
+
+    def timed_boundary():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        boundary()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    def timed_decide(*args):
+        t0 = time.perf_counter()
+        out = decide(*args)
+        decide_walls.append(time.perf_counter() - t0)
+        return out
+
+    eng2._steer_boundary = timed_boundary
+    eng2._steer.decide = timed_decide
+    again = SimulationResult(sexp, eng2).resume()
+    if not (again.steering_report() == rep
+            and records_equal(again.records, steered.records)
+            and sketches_equal(again.sketches(), steered.sketches())):
+        raise AssertionError(f"{label}: a steered rerun differs")
+    log(f"[{label}] steered: stopped points {rep['stopped_points']} at "
+        f"windows {rep['stop_windows']}, decisions {rep['decisions']}, "
+        f"{len(rep['bimodal_flags'])} bimodal flags, point-windows "
+        f"simulated {rep['point_windows_simulated']} of "
+        f"{rep['point_windows_total']}; {MAIN_WINDOWS} launches, "
+        f"{steered.telemetry.host_syncs} host syncs for "
+        f"{steered.telemetry.dispatches} blocks; {steered_ms:.3f} ms per "
+        f"window against {base_ms:.3f} unsteered; decision points' wall "
+        f"{[round(w * 1e3, 3) for w in walls]} ms (the policy's decide "
+        f"{[round(w * 1e3, 3) for w in decide_walls]} ms); a rerun repeats "
+        f"the decision log, records and sketches bit for bit; {card}")
+    if steered.telemetry.host_syncs != steered.telemetry.dispatches:
+        raise AssertionError(f"{label}: a decision point added host syncs")
+
+    off = simulate(exp.with_(steering=Steering()), device=device)
+    if not records_equal(off.records, base.records):
+        raise AssertionError(f"{label}: Steering() changed the records")
+
+    # the drill: checkpoint per collected block, drop the engine after
+    # the first decision, build a new one and restore the file
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_steer_")
+    try:
+        ck = f"{tmp}/steer"
+        eng3 = build_engine(sexp, device=device)
+        dropped = False
+        while eng3._window < len(eng3.grid):
+            if eng3.run_block():
+                eng3.checkpoint(ck)
+            if eng3._steer.decisions and not dropped:
+                dropped = True
+                eng3 = build_engine(sexp, device=device)
+                eng3.restore(ck)
+        if not (dropped and eng3.steering_report() == rep
+                and records_equal(eng3.stream.records(), steered.records)
+                and sketches_equal(eng3.sketches(), steered.sketches())):
+            raise AssertionError(f"{label}: the restored run differs from "
+                                 "the uninterrupted one")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[{label}] Steering() with every lever off: records bitwise equal "
+        f"to the unsteered run's; dropped after its first decision and "
+        f"restored into a new engine, the run ends with the uninterrupted "
+        f"run's report, records and sketches bit for bit")
+
+
+def phase_steer_tau(device, tau_win_ms, card) -> None:
+    """Phase 5b: the tau switch on phase 3d's cell."""
+    import numpy as np
+
+    from repro_torch.api import (
+        Ensemble,
+        Experiment,
+        Method,
+        Schedule,
+        Steering,
+        simulate,
+    )
+    from repro_torch.core.cwc.models import MODELS
+    from repro_torch.kernels.ssa_step import tau_window_call
+
+    exp = Experiment(model=MODELS[MAIN_MODEL](),
+                     ensemble=Ensemble.make(replicas=MAIN_REPLICAS),
+                     schedule=Schedule(t_end=MAIN_T_END,
+                                       n_windows=MAIN_WINDOWS),
+                     n_lanes=1024, use_kernel=True, method=Method.TAU_LEAP)
+    label = "steer tau"
+    nums, _ = drive_main(exp.with_(steering=Steering(tau_switch=True)),
+                         tau_window_call, label, device)
+    ratio = [round(a / b, 4) for a, b in zip(nums["win_ms"], tau_win_ms)]
+    pins = [(d["window"], d["n_lanes"], d["total_pinned"])
+            for d in nums["report"]["decisions"] if d["action"] == "no_leap"]
+    log(f"[{label}] lanes pinned to exact steps per decision (window, "
+        f"newly, in all): {pins}; window ms / phase 3d's (windows 2-"
+        f"{MAIN_WINDOWS}): {ratio}; {card}")
+
+    fb = exp.with_(tau_fallback=1e6)
+    tau_window_call.launches = 0
+    pinned = simulate(fb.with_(steering=Steering(
+        tau_switch=True, tau_switch_min_steps=8)), device=device)
+    if tau_window_call.launches != MAIN_WINDOWS:
+        raise AssertionError(f"{label}: {tau_window_call.launches} launches "
+                             f"for {MAIN_WINDOWS} windows")
+    plain = simulate(fb, device=device)
+    n_pinned = pinned.steering_report()["lanes_pinned_exact"]
+    if not (n_pinned == MAIN_REPLICAS
+            and bool(pinned._engine._pool.no_leap.all())):
+        raise AssertionError(f"{label}: {n_pinned} lanes pinned with no "
+                             "leap worth taking")
+    if not records_equal(pinned.records, plain.records):
+        raise AssertionError(f"{label}: pinning changed the records")
+    if not (np.asarray(pinned.telemetry.leaps_per_window) == 0).all():
+        raise AssertionError(f"{label}: a lane leaped at tau_fallback=1e6")
+    log(f"[{label}] tau_fallback=1e6, tau_switch_min_steps=8: all "
+        f"{n_pinned} lanes pinned at window "
+        f"{pinned.steering_report()['decisions'][0]['window']}, records "
+        f"bitwise equal to the unpinned run's")
+
+
+def phase_sketch_sparse(device, sparse_records, sparse_win_ms, card) -> None:
+    """Phase 5c: phase 3b's experiment with a sketch attached."""
+    import numpy as np
+
+    from repro_torch.api import SketchSpec, simulate
+    from repro_torch.core.cwc.models import MODELS
+    from repro_torch.kernels.ssa_step import sparse_window_call
+
+    exp = sparse_experiment(MODELS[SPARSE_MODEL]()).with_(
+        sketch=SketchSpec(n_bins=SKETCH_BINS, thresholds=(20.0,)))
+    sparse_window_call.launches = 0
+    res = simulate(exp, device=device)
+    if sparse_window_call.launches != SPARSE_WINDOWS:
+        raise AssertionError(f"sketch sparse: {sparse_window_call.launches} "
+                             f"launches for {SPARSE_WINDOWS} windows")
+    if not records_equal(res.records, sparse_records):
+        raise AssertionError("sketch sparse: records differ from phase 3b's")
+    sks = res.sketches()
+    if len(sks) != SPARSE_WINDOWS or not all(
+            (s.hist.sum(axis=-1) == SPARSE_REPLICAS).all() for s in sks):
+        raise AssertionError("sketch sparse: histogram totals differ from "
+                             "the lanes")
+    ms = res.telemetry.wall_time_s / SPARSE_WINDOWS * 1e3
+    log(f"[sketch sparse] ring80 x {SPARSE_REPLICAS} with a sketch of "
+        f"{len(res.obs_names)} observables: records bitwise equal to phase "
+        f"3b's, totals = lanes, {SPARSE_WINDOWS} launches; {ms:.3f} ms per "
+        f"window (phase 3b, timed per window: mean "
+        f"{np.mean(sparse_win_ms):.3f}); {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1383,6 +1707,9 @@ def main() -> int:
     tau_dense = phase_tau(device, False, dense)
     tau_sparse = phase_tau(device, True, sparse)
     phase_supersteps(device, dense["records"], tau_sparse["records"], card)
+    phase_steering(device, card)
+    phase_steer_tau(device, tau_dense["win_ms"], card)
+    phase_sketch_sparse(device, sparse["records"], sparse["win_ms"], card)
     entries = [
         ("ssa_window", "ssa_window.cu", "src/repro/kernels/ssa_step.py:64",
          dense),

@@ -23,6 +23,8 @@ from repro_torch.api.spec import (
     Reduction,
     Schedule,
     Schema,
+    SketchSpec,
+    Steering,
 )
 from repro_torch.core.stream import CsvSink
 from repro_torch.core.sweep import SweepSpec
@@ -39,6 +41,8 @@ __all__ = [
     "Schedule",
     "Schema",
     "SimulationResult",
+    "SketchSpec",
+    "Steering",
     "SweepSpec",
     "Telemetry",
     "build_engine",

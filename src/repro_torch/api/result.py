@@ -1,8 +1,9 @@
 """SimulationResult — the handle `simulate()` returns; port of
-`repro/api/result.py` for the per-window path.
+`repro/api/result.py`.
 
 Wraps the running (or finished) engine: streamed records, per-sweep-
-point grouped statistics, raw trajectories and telemetry. The handle
+point grouped statistics, raw trajectories, sketches, the steering
+report and telemetry. The handle
 owns the run loop, so a run cut by `max_windows=` continues in-process
 with `.resume()`.
 """
@@ -28,8 +29,10 @@ class Telemetry:
     window) under host_loop, one per block under supersteps
     (window_block=W).
     host_syncs: blocking device->host waits. Per window: the combined
-    record pull, plus samples, grouped stats and predictive costs;
-    under supersteps ONE per block (the wait on the block's ring).
+    record pull (a sketch rides it), plus samples, grouped stats and
+    predictive costs; under supersteps ONE per block (the wait on the
+    block's ring). A steering decision point adds none (the reference
+    counts two: its counter pull and its pool pull).
     window_wall_times: per-window host wall to enqueue the window's
     device work on the per-window paths (excluding device compute,
     which the record pull then waits for); under supersteps 1/W of the
@@ -96,12 +99,17 @@ class SimulationResult:
         snapshot's pool to the host (engine.ckpt_pulls), not for the
         blocks in flight. `max_windows` may cut the
         final block short; such a checkpoint rolls back to the cut
-        block's boundary."""
+        block's boundary.
+
+        Steered runs always take the block loop (decision points live
+        at collected block boundaries), even at window_block=1, and run
+        lock-step, so their checkpoints save the collected pool with
+        nothing in flight and take no snapshots."""
         eng = self._engine
         t0 = time.perf_counter()
         done = 0
         try:
-            if eng.cfg.window_block == 1:
+            if eng.cfg.window_block == 1 and eng._steer is None:
                 while eng._window < len(eng.grid) and (
                         max_windows is None or done < max_windows):
                     eng.run_window()
@@ -111,7 +119,7 @@ class SimulationResult:
             else:
                 limit = len(eng.grid) if max_windows is None else min(
                     len(eng.grid), eng._window + max_windows)
-                if checkpoint_path:
+                if checkpoint_path and eng._steer is None:
                     eng.enable_snapshots()
                 while eng._window < limit:
                     got = eng.run_block(dispatch_limit=limit)
@@ -175,6 +183,20 @@ class SimulationResult:
     def final_state(self) -> np.ndarray:
         """(I, S) species counts at the last completed window."""
         return self._engine._pool.x.cpu().numpy()
+
+    def sketches(self) -> list:
+        """Per-window `WindowSketch`es (hist (G, n_obs, n_bins) int32,
+        rare (G, n_obs, n_thr) int32 or None) when the Experiment
+        carried a SketchSpec; empty list otherwise. Derive quantiles or
+        bimodality flags with `repro_torch.stats.quantiles_from_hist` /
+        `bimodality_from_hist`."""
+        return self._engine.sketches()
+
+    def steering_report(self) -> Optional[dict]:
+        """The steering policy's savings and decision summary (stopped
+        points, windows saved, pinned lanes, bimodal flags, decision
+        log), or None when the Experiment carried no active Steering."""
+        return self._engine.steering_report()
 
     # ------------------------------------------------------ telemetry
     @property

@@ -63,7 +63,8 @@ def build_engine(experiment: Experiment, device=None) -> SimulationEngine:
         engine = SimulationEngine(
             experiment.model, cfg, group_ids=group_ids,
             record_trajectories=experiment.record_trajectories,
-            device=device)
+            device=device, sketch=experiment.sketch,
+            steering=experiment.steering)
     except ValueError as e:
         # engine-side config/table errors surface in the API's vocabulary
         raise ExperimentError(str(e)) from e

@@ -4,9 +4,9 @@
 names and defaults, so one spec literal builds in both packages. A
 spec is pure data; `simulate()` compiles and runs it.
 
-Options whose machinery is not ported yet are refused by `validate()`
-with an `ExperimentError` that names their ROADMAP queue-1 item; none
-is silently ignored.
+Options whose machinery is not ported yet (multi-shard partitioning,
+recovery) are refused by `validate()` with an `ExperimentError` that
+names their ROADMAP queue-1 item; none is silently ignored.
 """
 from __future__ import annotations
 
@@ -20,10 +20,12 @@ import numpy as np
 from repro_torch.core.cwc.rules import CWCModel
 from repro_torch.core.reactions import ReactionSystem
 from repro_torch.core.sweep import SweepSpec
+from repro_torch.stats.sketch import SketchSpec
+from repro_torch.steer.policy import Steering
 
 __all__ = [
     "Ensemble", "Experiment", "ExperimentError", "Method", "Partitioning",
-    "Policy", "Reduction", "Schedule", "Schema",
+    "Policy", "Reduction", "Schedule", "Schema", "SketchSpec", "Steering",
 ]
 
 
@@ -223,8 +225,15 @@ class Experiment:
     (an int >= 1, or "auto" to probe). Records are bitwise identical
     for any window_block and pipeline_depth.
 
-    sketch, steering, recovery and a multi-shard partitioning are not
-    ported yet and are refused by validate().
+    sketch: a SketchSpec — per-window histograms and rare-event counts
+    per (sweep point, observable) (`SimulationResult.sketches`).
+    steering: a Steering spec — the between-block controller
+    (early-stop, reallocation, tau-switch, bimodality flags;
+    `SimulationResult.steering_report`). Steered runs advance in
+    lock-step blocks, even at window_block=1.
+
+    recovery and a multi-shard partitioning are not ported yet and are
+    refused by validate().
     """
 
     model: Union[CWCModel, ReactionSystem]
@@ -246,8 +255,8 @@ class Experiment:
     window_block: int = 1
     pipeline_depth: Union[int, str] = 1
     sparse: bool = False
-    sketch: Optional[Any] = None
-    steering: Optional[Any] = None
+    sketch: Optional[SketchSpec] = None
+    steering: Optional[Steering] = None
     recovery: Optional[Any] = None
 
     def __post_init__(self):
@@ -317,17 +326,44 @@ class Experiment:
                 self.partitioning.validate(self.ensemble.n_instances)
             except ValueError as e:
                 raise ExperimentError(str(e)) from e
+        self._validate_steering()
         for s in self.sinks:
             if not callable(s):
                 raise ExperimentError(f"sink {s!r} is not callable")
         self._refuse_unported()
 
+    def _validate_steering(self) -> None:
+        """The sketch and steering fields, checked as the reference
+        checks them: their types, their own validate(), and the four
+        conflicts of an enabled steering spec (`Steering.check_run`,
+        which the engine calls too)."""
+        if self.sketch is not None:
+            if not isinstance(self.sketch, SketchSpec):
+                raise ExperimentError(
+                    "Experiment.sketch must be a SketchSpec, "
+                    f"got {type(self.sketch).__name__}")
+            try:
+                self.sketch.validate()
+            except ValueError as e:
+                raise ExperimentError(str(e)) from e
+        if self.steering is None:
+            return
+        if not isinstance(self.steering, Steering):
+            raise ExperimentError(
+                "Experiment.steering must be a Steering, "
+                f"got {type(self.steering).__name__}")
+        try:
+            self.steering.check_run(
+                host_loop=self.host_loop, sketched=self.sketch is not None,
+                tau_leap=self.method is Method.TAU_LEAP,
+                pipeline_depth=self.pipeline_depth)
+        except ValueError as e:
+            raise ExperimentError(str(e)) from e
+
     def _refuse_unported(self) -> None:
         """Options whose machinery the port does not have yet, each
         with its ROADMAP queue-1 item."""
         unported = [
-            (self.sketch is not None, "sketch", "item 12, sketches"),
-            (self.steering is not None, "steering", "item 13, steering"),
             (self.partitioning is not None
              and self.partitioning.n_shards > 1,
              "partitioning with n_shards > 1", "item 14, sharded farm"),

@@ -34,8 +34,21 @@ the blocks queued after it. `checkpoint()` and `restore()` write and
 read the reference's single-file format, so either package restores
 the other's files.
 
+Sketches (`sketch=SketchSpec`): each window's per-(point, observable)
+histogram and rare-event counts are computed on the device and packed
+into the window's one float64 row, so they ride the per-window path's
+one pull and the superstep ring at no extra host sync.
+
+Steering (`steering=Steering`): a between-block controller
+(steer/policy.py) decides at each collected block boundary; steered
+runs are lock-step (depth 1, each block collected before the next is
+dispatched) and go through the block loop even at window_block=1. The
+per-lane step/leap counters it reads ride the block's ring, and its
+actions are applied on the device by out-of-place ops, so a decision
+point adds no host sync and writes no pool leaf in place.
+
 Not ported yet (each raises in `repro_torch.api` before an engine is
-built): sketches, steering, supervision and multi-shard partitioning.
+built): supervision and multi-shard partitioning.
 """
 from __future__ import annotations
 
@@ -65,6 +78,8 @@ from repro_torch.core.reactions import ReactionSystem, sparse_tables
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.core.stream import StatsRecord, StatsStream
 from repro_torch.core.tau_leap import tau_tables
+from repro_torch.stats.sketch import SketchSpec, WindowSketch, window_sketch
+from repro_torch.steer.policy import Steering, SteeringActions, SteeringPolicy
 
 SCHEMAS = ("i", "ii", "iii")
 POLICIES = ("static_rr", "on_demand", "predictive")
@@ -229,7 +244,8 @@ def resolve_observables(model):
 class SimulationEngine:
     def __init__(self, model, cfg: SimConfig, rates=None,
                  group_ids=None, record_trajectories: bool = False,
-                 device=None):
+                 device=None, sketch: Optional[SketchSpec] = None,
+                 steering: Optional[Steering] = None):
         self.device = resolve_device(device)
         self.system, self.obs_names, self.obs_idx = resolve_observables(
             model)
@@ -303,8 +319,40 @@ class SimulationEngine:
         self._grouped_fn = None
         self._n_groups = 0
         self._grouped: list[reduction.Stats] = []
+        # sketches: the bin geometry resolved from the model's t=0
+        # observables (float64, as the reference resolves it), its
+        # operands on the device, and the pulled WindowSketch per window
+        self._sketch = None
+        self._sketch_dev = None
+        self._sketches: list[WindowSketch] = []
+        if sketch is not None:
+            x0 = np.asarray(self.system.x0, np.float64)
+            obs0 = np.asarray(
+                [x0[list(ii)].sum() for ii in self.obs_idx], np.float64)
+            sk = self._sketch = sketch.resolve(obs0)
+            self._sketch_dev = (
+                to_device(sk.lo, self.device),
+                to_device(sk.inv_width, self.device),
+                to_device(sk.thresholds, self.device) if sk.n_thr else None)
         if group_ids is not None:
             self.set_groups(group_ids)
+        self._steer: Optional[SteeringPolicy] = None
+        # the per-lane (steps, leaps) at the last collected block's end,
+        # from its ring: the decision point's counters
+        self._steer_counters: Optional[tuple] = None
+        if steering is not None:
+            steering.check_run(
+                host_loop=cfg.host_loop, sketched=sketch is not None,
+                tau_leap=cfg.method == "tau_leap",
+                pipeline_depth=cfg.pipeline_depth)
+        if steering is not None and steering.enabled:
+            # lock-step by construction: "auto" resolves to 1 here, with
+            # no probe, so the forcing shows in pipeline_depth_effective
+            self._depth = 1
+            self._steer = SteeringPolicy(
+                steering, cfg.n_instances, n_points=(self._n_groups or 1),
+                n_windows=cfg.n_windows,
+                tau_leap=(cfg.method == "tau_leap"))
         self._perm_cache: Optional[torch.Tensor] = None
         self._dispatch = (HostLoopDispatch if cfg.host_loop
                           else FusedDispatch)(self)
@@ -330,12 +378,14 @@ class SimulationEngine:
     def set_groups(self, group_ids) -> None:
         """Enable grouped reduction: group_ids (I,) maps each instance
         to a reduction group (e.g. its sweep point)."""
-        ids = np.asarray(group_ids, np.int32)
+        ids = np.array(group_ids, np.int32)
         if ids.shape != (self.cfg.n_instances,):
             raise ValueError(f"group_ids must have shape "
                              f"({self.cfg.n_instances},), got {ids.shape}")
         self._group_ids = ids
-        self._group_ids_dev = torch.as_tensor(ids, device=self.device)
+        # through pinned memory: steering regroups between blocks, and a
+        # copy from pageable memory would wait for the queued work
+        self._group_ids_dev = to_device(ids, self.device)
         self._n_groups = int(ids.max()) + 1
         if self.cfg.stat_blocks == 1:
             self._grouped_fn = partial(reduction.grouped_stats,
@@ -364,10 +414,21 @@ class SimulationEngine:
         return perm
 
     # ------------------------------------------------------------------
+    def _sketch_eval(self, obs):
+        """(hist, rare) of one window's observables on the device,
+        grouped by the CURRENT lane->point map (a steering reallocation
+        regroups the next window's sketch)."""
+        lo, inv_width, thr = self._sketch_dev
+        gids = self._group_ids_dev
+        return window_sketch(
+            obs, gids, self._n_groups if gids is not None else 1, lo,
+            inv_width, self._sketch.n_bins, thr)
+
     def _pack_window(self, obs, steps_sum, leaps_sum, truncated):
         """One window's small results as ONE float64 device row: the
         record's moments (mean, var, ci90, n), the pool's step/leap
-        totals and the truncation flag, each widened exactly. The
+        totals, the truncation flag and, with a sketch, its int32
+        histogram and rare counts (below 2^31, so widened exactly). The
         per-window and the superstep paths both pull this row, so their
         records come from the same ops on the same values."""
         stats = reduction.blocked_stats(obs, self.cfg.stat_blocks)
@@ -375,6 +436,8 @@ class SimulationEngine:
             truncated = torch.zeros((), dtype=torch.bool, device=obs.device)
         parts = [stats.mean, stats.var, stats.ci90, stats.n, steps_sum,
                  leaps_sum, truncated]
+        if self._sketch is not None:
+            parts.extend(p for p in self._sketch_eval(obs) if p is not None)
         return torch.cat([p.reshape(-1).to(torch.float64) for p in parts])
 
     def _emit_row(self, w: int, row: np.ndarray) -> StatsRecord:
@@ -396,6 +459,15 @@ class SimulationEngine:
         self.window_steps.append((steps_cum - self._cum_steps) & 0xFFFFFFFF)
         self.window_leaps.append((leaps_cum - self._cum_leaps) & 0xFFFFFFFF)
         self._cum_steps, self._cum_leaps = steps_cum, leaps_cum
+        if self._sketch is not None:
+            sk = self._sketch
+            counts = row[4 * n_obs + 3:].astype(np.int32)
+            g = counts.shape[0] // (n_obs * (sk.n_bins + sk.n_thr))
+            n_hist = g * n_obs * sk.n_bins
+            self._sketches.append(WindowSketch(
+                hist=counts[:n_hist].reshape(g, n_obs, sk.n_bins),
+                rare=(counts[n_hist:].reshape(g, n_obs, sk.n_thr)
+                      if sk.n_thr else None)))
         return StatsRecord(t=float(self.grid[w]), window=w, mean=mean,
                            var=var, ci90=ci90, n=float(n.max()))
 
@@ -501,9 +573,10 @@ class SimulationEngine:
 
     @property
     def pipeline_depth_effective(self) -> int:
-        """The depth the collector actually runs at (steering, item 13,
-        will force 1 here)."""
-        return self.pipeline_depth
+        """The depth the collector actually runs at. Steering forces
+        lock-step (depth 1) regardless of the requested depth; this is
+        the visible record of that forcing."""
+        return 1 if self._steer is not None else self.pipeline_depth
 
     def enable_snapshots(self) -> None:
         """Opt in to ring-snapshot checkpointing: every subsequent block
@@ -588,7 +661,11 @@ class SimulationEngine:
             ring["obs"] = torch.stack(res.obs)
         if res.steps_delta is not None:
             ring["steps_delta"] = torch.stack(res.steps_delta)
-        # sketches ride this ring once item 12 is ported
+        if self._steer is not None:
+            # the decision point's per-lane counters at the block's end
+            # (the pool's own leaves: nothing writes them in place)
+            ring["lane_steps"] = self._pool.steps
+            ring["lane_leaps"] = self._pool.leaps
         pull, done = self._pull_async(ring)
         dispatch_wall = time.perf_counter() - t0
         # every queued ring (and snapshot) is live at once at depth K,
@@ -658,6 +735,9 @@ class SimulationEngine:
             # block partials for the multi-process farm go here (item 16)
             self.stream.emit(rec)
             self._window += 1
+        if "lane_steps" in pull:
+            self._steer_counters = (pull["lane_steps"].numpy(),
+                                    pull["lane_leaps"].numpy())
         host_s = time.perf_counter() - t0 - pull_s
         self.block_walls.append((w0, n_win, ent.dispatch_wall,
                                  pull_s + host_s))
@@ -680,7 +760,12 @@ class SimulationEngine:
         than `pipeline_depth` blocks are queued behind it — or once
         dispatching is done — so host-side reduction and sinks for block
         k run while the device simulates blocks k+1..k+K. Returns the
-        number of windows collected this call."""
+        number of windows collected this call.
+
+        Steering collects the freshly dispatched block at once
+        (lock-step): its decision point must see block k's records
+        before block k+1 is dispatched, and the decision is applied
+        here, at the collected boundary."""
         limit = len(self.grid)
         if dispatch_limit is not None:
             limit = min(limit, dispatch_limit)
@@ -688,11 +773,16 @@ class SimulationEngine:
             self._dispatch_block(limit)
         before = self._window
         depth = self.pipeline_depth  # "auto" acts as 1 until resolved
-        if self._pending and (len(self._pending) > depth
+        if self._pending and (self._steer is not None
+                              or len(self._pending) > depth
                               or self._dispatched >= limit):
             self._collect_block()
-        # steering's decision point at the collected boundary (item 13)
-        return self._window - before
+        collected = self._window - before
+        if (self._steer is not None and collected and not self._pending
+                and self._dispatched == self._window
+                and self._window < len(self.grid)):
+            self._steer_boundary()
+        return collected
 
     def flush(self) -> None:
         """Collect every in-flight superstep so the emitted records
@@ -700,8 +790,93 @@ class SimulationEngine:
         while self._pending:
             self._collect_block()
 
+    # --------------------------------------------------------- steering
+    def _steer_boundary(self) -> None:
+        """One decision point: hand the policy the freshest per-point
+        stats (the newest grouped record, else the pooled record), the
+        newest window histogram and the per-lane step/leap counters of
+        the block just collected (mod-2^32 residues, as the reference's
+        wrapping int32 counters give them), then apply what it decides.
+        The counters rode the block's ring, so unlike the reference,
+        which pulls them here and pulls the pool again to apply a
+        decision (two host syncs a decision point), this adds none to
+        `n_host_syncs`."""
+        steps, leaps = (a.astype(np.int64) & 0xFFFFFFFF
+                        for a in self._steer_counters)
+        if self._grouped:
+            g = self._grouped[-1]
+            point_stats = {"mean": np.asarray(g.mean),
+                           "ci90": np.asarray(g.ci90)}
+        elif self.stream.records():
+            r = self.stream.records()[-1]
+            point_stats = {"mean": np.asarray(r.mean),
+                           "ci90": np.asarray(r.ci90)}
+        else:
+            point_stats = None
+        hist = self._sketches[-1].hist if self._sketches else None
+        gids = (self._group_ids if self._group_ids is not None
+                else np.zeros(self.cfg.n_instances, np.int32))
+        actions = self._steer.decide(self._window, point_stats, hist,
+                                     gids, steps, leaps)
+        if actions.any:
+            self._apply_steering(actions)
+
+    def _apply_steering(self, a: SteeringActions) -> None:
+        """Apply a decision to the pool on its device: the masks and
+        the (lane, donor) pairs go up through pinned memory, and every
+        edited leaf is a fresh tensor (out-of-place `|`, gathers and
+        `index_put`), so ring snapshots holding the old pool by
+        reference stay intact. A move clones the donor's x, t and dead
+        onto the lane (its own key and counters stay: trajectory
+        splitting), and its rates row and scheduler cost; per-lane rates
+        then rebind the kernel tables. Shared (R,) rates are the same
+        for every lane, so a move leaves them as they are."""
+        pool = self._pool
+        x, t, dead, no_leap = pool.x, pool.t, pool.dead, pool.no_leap
+        stop = np.asarray(a.stop_lanes, bool)
+        if stop.any():
+            dead = dead | to_device(stop, self.device)
+        moves = np.asarray(a.moves)
+        if moves.size:
+            pairs = to_device(moves.astype(np.int64), self.device)
+            dst, src = pairs[:, 0], pairs[:, 1]
+            x = x.index_put((dst,), x[src])
+            t = t.index_put((dst,), t[src])
+            dead = dead.index_put((dst,), dead[src])
+            if self._rates_dev.ndim == 2:
+                self.rates = np.array(self.rates)
+                self.rates[moves[:, 0]] = self.rates[moves[:, 1]]
+                self._rates_dev = self._rates_dev.index_put(
+                    (dst,), self._rates_dev[src])
+                # engine.set_rates refuses once windows have run; the
+                # kernel tables are bound to the rates: rebind them
+                self._dispatch.set_rates(self._rates_dev)
+            cost = self.scheduler._cost
+            cost[moves[:, 0]] = cost[moves[:, 1]]
+        if a.no_leap is not None:
+            no_leap = to_device(np.asarray(a.no_leap, bool), self.device)
+        self._pool = pool._replace(x=x, t=t, dead=dead, no_leap=no_leap)
+        if a.new_group_ids is not None:
+            # every point keeps >= 1 lane, so n_groups is unchanged
+            self.set_groups(a.new_group_ids)
+
+    def sketches(self) -> list[WindowSketch]:
+        """Per-window WindowSketch list (empty without a SketchSpec)."""
+        self.flush()
+        return list(self._sketches)
+
+    def steering_report(self) -> Optional[dict]:
+        """The policy's savings and decision summary (None when no
+        steering is active)."""
+        if self._steer is None:
+            return None
+        self.flush()
+        return self._steer.report()
+
     def run(self) -> list[StatsRecord]:
-        if self.cfg.window_block == 1:
+        # steered runs go through the block loop even at window_block=1
+        # (decisions live at the collected block boundary)
+        if self.cfg.window_block == 1 and self._steer is None:
             while self._window < len(self.grid):
                 self.run_window()
         else:
@@ -766,10 +941,20 @@ class SimulationEngine:
             for name in ("n", "mean", "var", "ci90"):
                 extra[f"grouped_{name}"] = np.stack(
                     [getattr(g, name) for g in self._grouped[:win]])
-        # sketch_* (item 12), bp_*/gpp_* (item 16) and steer_* (item 13)
-        # keys are written here once their features are ported
+        if self._sketches[:win]:
+            extra["sketch_hist"] = np.stack(
+                [s.hist for s in self._sketches[:win]])
+            if self._sketches[0].rare is not None:
+                extra["sketch_rare"] = np.stack(
+                    [s.rare for s in self._sketches[:win]])
+        # bp_*/gpp_* keys (item 16) are written here once it is ported
         if self._group_ids is not None:
+            # steering's reallocation rewrites the lane->point map, so it
+            # is run state, not only construction input
             extra["group_ids"] = self._group_ids
+        if self._steer is not None:
+            for k, v in self._steer.state_dict().items():
+                extra[f"steer_{k}"] = v
         # keys and draw counters cross as the reference's uint32 words
         pool = self._pull_pool(p, ready)
         for f in ("key", "ctr", "ctr_hi"):
@@ -817,16 +1002,13 @@ class SimulationEngine:
         z = ckpt_store.verify(
             path, required=("x", "t", "key", "steps", "dead",
                             "window", "cost"))
-        for prefix, item in (("sketch_", "item 12, sketches"),
-                             ("steer_", "item 13, steering"),
-                             ("bp_", "item 16, the multi-process farm"),
-                             ("gpp_", "item 16, the multi-process farm")):
+        for prefix in ("bp_", "gpp_"):
             keys = sorted(k for k in z if k.startswith(prefix))
             if keys:
                 raise ExperimentError(
                     f"checkpoint {path!r} carries {keys}, state of a "
                     f"feature not ported to repro_torch yet (ROADMAP "
-                    f"queue 1, {item})")
+                    "queue 1, item 16, the multi-process farm)")
         saved_window = int(z["window"])
         wb = self.cfg.window_block
         if wb > 1 and saved_window % wb and saved_window != len(self.grid):
@@ -885,7 +1067,15 @@ class SimulationEngine:
             # the kernel tables are bound to the rates: rebind them
             self._dispatch.set_rates(self._rates_dev)
         if "group_ids" in z:
+            # the saved map reflects any steering reallocations
             self.set_groups(np.asarray(z["group_ids"], np.int32))
+        if self._steer is not None:
+            # a file without steer_* keys leaves the fresh policy as is;
+            # an unsteered engine ignores them, as the reference does
+            st = {k[len("steer_"):]: z[k] for k in z
+                  if k.startswith("steer_")}
+            if st:
+                self._steer.load_state(st)
         # re-populate already-emitted records (buffer only — sinks are
         # replayed by the caller, so a resumed CSV is written once)
         self.stream.buffer.clear()
@@ -904,6 +1094,10 @@ class SimulationEngine:
                             ci90=z["grouped_ci90"][w])
             for w in range(len(z["grouped_n"]))]
             if "grouped_n" in z else [])
+        sh, sr = z.get("sketch_hist"), z.get("sketch_rare")
+        self._sketches = ([
+            WindowSketch(hist=sh[w], rare=(sr[w] if sr is not None else None))
+            for w in range(len(sh))] if sh is not None else [])
 
     @property
     def peak_buffered_bytes(self) -> int:

@@ -179,8 +179,6 @@ def test_fused_window_truncation_raises_in_both():
 
 
 @pytest.mark.parametrize("changes,item", [
-    (dict(sketch=object()), "item 12"),
-    (dict(steering=object()), "item 13"),
     (dict(partitioning=T.Partitioning(n_shards=2)), "item 14"),
     (dict(recovery=object()), "items 15-16"),
 ])

@@ -8,6 +8,7 @@ Record means are exact sums of integer populations, so they are held
 bit for bit; var and ci90 to the ulp bound of test_torch_reduction.
 """
 import os
+from functools import partial
 
 import numpy as np
 import pytest
@@ -323,7 +324,6 @@ def test_legacy_files_restore(tmp_path, drop):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("sketch_hist", "item 12"), ("steer_stopped", "item 13"),
     ("bp_n", "item 16"), ("gpp_mean", "item 16")])
 def test_files_of_unported_features_are_refused(tmp_path, key, item):
     ck = str(tmp_path / "ck")
@@ -338,3 +338,95 @@ def test_files_of_unported_features_are_refused(tmp_path, key, item):
     assert eng._window == 0 and eng.stream.records() == []
     with pytest.raises(T.ExperimentError, match=item):
         run(make_exp(T), checkpoint_path=ck, resume=True)
+
+
+# ------------------------------------------- steered, sketched files
+def steered_exp(api):
+    """An immigration-death sweep whose point 1 converges by window 2:
+    the decision there stops it and moves all but one of its lanes to
+    point 0 (steer_* state, regrouped ids, moved rates rows)."""
+    from repro.core.reactions import make_system as j_make_system
+    from repro_torch.core.reactions import make_system as t_make_system
+
+    make = j_make_system if api is J else t_make_system
+    model = make(["A"], [({}, {"A": 1}, 2.5), ({"A": 1}, {}, 1.0)],
+                 {"A": 0}, names=("birth", "death"))
+    return api.Experiment(
+        model=model,
+        ensemble=api.Ensemble.make(replicas=640, sweep={"birth": [2.5, 40.0]}),
+        schedule=api.Schedule(t_end=4.0, n_windows=4),
+        reduction=api.Reduction.PER_POINT, n_lanes=16, seed=5,
+        window_block=2, use_kernel=api is T,
+        sketch=api.SketchSpec(n_bins=16, hi=64.0, thresholds=(30.0,)),
+        steering=api.Steering(ci_rel_tol=0.03, min_windows=2,
+                              reallocate=True))
+
+
+@pytest.mark.parametrize("writer,reader", [("port", "reference"),
+                                           ("reference", "port")])
+def test_steered_sketched_file_resumes_across_packages(tmp_path, writer,
+                                                       reader):
+    """A steered, sketched run saved after its first decision by one
+    package resumes in the other and ends as the reader's uninterrupted
+    run: steering report, sketches, pool and record means bitwise
+    (var/ci90 to the ulp bound). The file carries sketch_* and steer_*
+    keys, the policy's log as a 0-d unicode array, with the reference's
+    dtypes and shapes."""
+    apis = {"port": T, "reference": J}
+    w_api, r_api = apis[writer], apis[reader]
+    ck = str(tmp_path / "ck")
+    cut = run(steered_exp(w_api), max_windows=2, checkpoint_path=ck)
+    assert cut.steering_report()["stopped_points"] == [1]
+    z = t_store.verify(ck)
+    assert {"sketch_hist", "sketch_rare", "steer_log", "steer_stopped",
+            "group_ids"} <= set(z)
+    assert z["steer_log"].shape == () and z["steer_log"].dtype.kind == "U"
+    assert z["sketch_hist"].dtype == np.int32
+    assert z["sketch_hist"].shape == (2, 2, 1, 16)
+    got = run(steered_exp(r_api), checkpoint_path=ck, resume=True)
+    clean = run(steered_exp(r_api))
+    assert got.steering_report() == clean.steering_report()
+    assert len(got.sketches()) == len(clean.sketches()) == 4
+    for a, b in zip(got.sketches(), clean.sketches()):
+        assert a.hist.tobytes() == b.hist.tobytes()
+        assert a.rare.tobytes() == b.rare.tobytes()
+    pa, pb = pool_arrays(clean), pool_arrays(got)
+    for f in POOL:
+        assert pa[f].tobytes() == pb[f].tobytes(), f
+    for a, b in zip(clean.records, got.records):
+        assert (a.t, a.window, a.n) == (b.t, b.window, b.n)
+        assert a.mean.tobytes() == b.mean.tobytes()
+        assert ulp(a.var, b.var) <= VAR_ULP
+        assert ulp(a.ci90, b.ci90) <= CI90_ULP
+    # the other package's uninterrupted run decides alike
+    other = run(steered_exp(w_api))
+    assert other.steering_report() == clean.steering_report()
+    files = {}
+    for api in (J, T):
+        path = str(tmp_path / api.__name__)
+        run(steered_exp(api), max_windows=2, checkpoint_path=path)
+        files[api] = j_store.verify(path)
+    assert sorted(files[J]) == sorted(files[T])
+    for k in files[J]:
+        assert files[J][k].dtype == files[T][k].dtype, k
+        assert files[J][k].shape == files[T][k].shape, k
+        if k.startswith(("steer_", "sketch_")) or k in ("group_ids",
+                                                        "rates", "cost"):
+            assert files[J][k].tobytes() == files[T][k].tobytes(), k
+
+
+def test_unsteered_engine_ignores_steer_keys(tmp_path):
+    """A file with steer_* keys restored by an engine without steering
+    loads as the reference loads it: the keys are ignored, the
+    sketches and regrouped ids are read."""
+    ck = str(tmp_path / "ck")
+    run(steered_exp(T), max_windows=2, checkpoint_path=ck)
+    from repro.api.run import build_engine as j_build_engine
+
+    for api, build in ((T, partial(T.build_engine, device="cpu")),
+                       (J, j_build_engine)):
+        eng = build(steered_exp(api).with_(steering=None))
+        eng.restore(ck)
+        assert eng._window == 2 and eng._steer is None
+        assert len(eng._sketches) == 2
+        assert (np.asarray(eng._group_ids) == 0).sum() == 2 * 640 - 1

@@ -670,3 +670,65 @@ def test_cuda_supersteps_bitwise_one_sync_per_block(cuda, name, method,
     _records_equal(base, got, name)
     assert got.telemetry.steps_per_window == base.telemetry.steps_per_window
     _pool_equal(base._engine._pool, got._engine._pool, name)
+
+
+VAR_ULP = 12
+CI90_ULP = 8
+
+
+def _ulp(a, b) -> int:
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return int(np.abs(a.view(np.int32).astype(np.int64)
+                      - b.view(np.int32).astype(np.int64)).max())
+
+
+@pytest.mark.cuda
+def test_cuda_steered_sketched_sweep_matches_cpu(cuda):
+    """A steered, sketched lv8 sweep on the card (one kernel launch per
+    window, the decision applied on the device, the per-lane rates of
+    the moved lanes copied and the kernel tables rebound) against the
+    same run on the CPU's plain twin: decision log, sketches and pool
+    bit for bit; record means bitwise (sums of populations below 2^24),
+    var and ci90 within the ulp bound of the port's parity tests (the
+    card sums in another order)."""
+    def exp(steering=None):
+        return T.Experiment(
+            model=MODELS["lv8"](),
+            ensemble=T.Ensemble.make(replicas=256,
+                                     sweep={"die": [0.4, 1.0]}),
+            schedule=T.Schedule(t_end=0.6, n_windows=6),
+            reduction=T.Reduction.PER_POINT, n_lanes=128, seed=4,
+            use_kernel=True, window_block=2,
+            sketch=T.SketchSpec(n_bins=16, thresholds=(500.0,)),
+            steering=steering)
+
+    base = T.simulate(exp(), device="cpu")
+    pp = base.per_point()
+    rel = (pp["ci90"][1].astype(np.float64) / np.maximum(
+        np.abs(pp["mean"][1].astype(np.float64)), 1.0)).max(axis=1)
+    tol = float(np.sqrt(rel.min() * rel.max()))
+    steer = T.Steering(ci_rel_tol=tol, min_windows=2, reallocate=True,
+                       bimodality=True)
+    cpu = T.simulate(exp(steer), device="cpu")
+    before = tks.ssa_window_call.launches
+    card = T.simulate(exp(steer), device=cuda)
+    assert tks.ssa_window_call.launches == before + 6
+    rep = cpu.steering_report()
+    assert rep["stopped_points"]
+    assert any(d["action"] == "reallocate" for d in rep["decisions"])
+    assert card.steering_report() == rep
+    assert card.telemetry.host_syncs == card.telemetry.dispatches == 3
+    assert len(card.sketches()) == len(cpu.sketches()) == 6
+    for a, b in zip(card.sketches(), cpu.sketches()):
+        assert a.hist.tobytes() == b.hist.tobytes()
+        assert a.rare.tobytes() == b.rare.tobytes()
+    for f, x, y in zip(tg.LaneState._fields, card._engine._pool,
+                       cpu._engine._pool):
+        assert torch.equal(x.cpu(), y), f
+    assert torch.equal(card._engine._rates_dev.cpu(), cpu._engine._rates_dev)
+    for a, b in zip(card.records, cpu.records):
+        assert (a.t, a.window, a.n) == (b.t, b.window, b.n)
+        assert a.mean.tobytes() == b.mean.tobytes()
+        assert _ulp(a.var, b.var) <= VAR_ULP
+        assert _ulp(a.ci90, b.ci90) <= CI90_ULP
