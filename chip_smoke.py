@@ -109,8 +109,26 @@ Phases (each prints its own lines; any failure exits non-zero):
              Launches = windows in every run; ms per window steered and
              unsteered, the decision point's wall and the sketch's own ms
              per window (CUDA events).
-6. report  — one JSON line of per-kernel numbers, the card line, then the
-             result line.
+6. shards and recovery — 6a: the path of 3 (lv8 x 2^20, exact) with
+             Partitioning(n_shards=4, stat_blocks=8), shard k on cuda:k
+             when four cards are visible, else all four on cuda:0 (printed),
+             against the unsharded run at stat_blocks=8, at window_block 1
+             and 4 with depth "auto", in turns: records bitwise equal,
+             launches = windows x 4, dispatches = windows or blocks, host
+             syncs per window 1 and 1/4, wall per window of each. 6b: the
+             dense tau kernel on the same cell at 4 shards, the sparse exact
+             and sparse tau kernels on ring80 x 2^18 at 2 shards (2
+             windows), each bitwise against its unsharded run, launches =
+             windows x shards. 6c: a 4-shard save at window 4 restored at
+             1 and at 2 shards, each ending bitwise equal to 6a, with the
+             save and restore times. 6d: supervised runs of 6a's cell
+             (cadence 2): crash and corrupt-newest-file (2 restarts), two
+             device losses (4 -> 2 -> 1 shards) and a NaN-poisoned pool
+             caught by the engine's guard, each bitwise equal to 6a, with
+             each recovery's teardown, rebuild and restore walls.
+7. report  — one JSON line of per-kernel numbers (launches: the main
+             paths' and phase 6's counted sharded runs'), the card line,
+             then the result line.
 
 Exits non-zero, printing no result, without a CUDA device or without
 the `src/repro_torch` package beside this script. Imports nothing from
@@ -1678,6 +1696,367 @@ def phase_sketch_sparse(device, sparse_records, sparse_win_ms, card) -> None:
         f"{np.mean(sparse_win_ms):.3f}); {card}")
 
 
+SHARDS = 4
+SPARSE_SHARDS = 2
+SHARD_BLOCKS = 8
+
+
+def shard_devices(n: int, device):
+    """The device argument of an n-shard run: shard k on cuda:k when n
+    cards are visible, else every shard on `device`."""
+    import torch
+
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", k) for k in range(n)]
+    return device
+
+
+def sharded(exp, n_shards: int):
+    """`exp` over n_shards shards (1: unsharded) at SHARD_BLOCKS stat
+    blocks, the block count every phase-6 comparison pins."""
+    from repro_torch.api import Partitioning
+
+    return exp.with_(partitioning=Partitioning(n_shards=n_shards,
+                                               stat_blocks=SHARD_BLOCKS))
+
+
+def run_counted(exp, counter, device, **kw):
+    """(result, launches of `counter` in this run): the count is set to 0
+    just before and read just after."""
+    from repro_torch.api import simulate
+
+    counter.launches = 0
+    res = simulate(exp, device=device, **kw)
+    return res, counter.launches
+
+
+def shard_kernel_split(exp, device, card) -> None:
+    """Where a sharded window's time goes on one card: each window's
+    dense kernel over the whole pool in one launch against the same
+    window in SHARDS launches of its contiguous quarters, back to back
+    (CUDA events, one of each a window after a warm-up), with window 2's
+    longest lane per quarter; the outputs must agree. The engine
+    advances the pool between windows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import build_engine
+    from repro_torch.kernels.ssa_step import dense_dep_mask, ssa_window_call
+
+    eng = build_engine(exp, device=device)
+    idx, coef, delta, rates = eng._tensors_base
+    mask = dense_dep_mask(idx, coef, delta)
+    n_steps = exp.kernel_chunk_steps * exp.kernel_max_chunks
+    whole_ms, quarter_ms = [], []
+    for w in range(len(eng.grid)):
+        pool = eng._pool
+        horizon = float(np.float32(eng.grid[w]))
+        per = pool.x.shape[0] // SHARDS
+
+        def call(lo, hi):
+            return ssa_window_call(
+                pool.x[lo:hi], pool.t[lo:hi],
+                pool.dead[lo:hi].to(torch.int32), pool.key[lo:hi],
+                pool.ctr[lo:hi], pool.ctr_hi[lo:hi], idx, coef, delta,
+                rates, horizon, n_steps=n_steps, dep_mask=mask)
+
+        def whole():
+            return call(0, pool.x.shape[0])
+
+        def quarters():
+            return [call(k * per, (k + 1) * per) for k in range(SHARDS)]
+
+        if w == 0:
+            whole()
+            quarters()
+        whole_ms.append(cuda_ms(whole))
+        quarter_ms.append(cuda_ms(quarters))
+        one = whole()
+        parts = quarters()
+        for i in range(len(one)):
+            if not torch.equal(one[i], torch.cat([p[i] for p in parts])):
+                raise AssertionError("6a: quarter launches disagree with "
+                                     "the whole-pool launch")
+        if w == 1:
+            used = (one[4].long() - pool.ctr.long()) & 0xFFFFFFFF
+            longest = [int(used[k * per:(k + 1) * per].max())
+                       for k in range(SHARDS)]
+            mean_used = float(used.double().mean())
+        eng.run_window()
+    extra = [q - o for q, o in zip(quarter_ms, whole_ms)]
+    log(f"[sharded] 6a each window's kernel: one launch over "
+        f"{eng.cfg.n_instances} lanes {[round(m, 3) for m in whole_ms]} ms, "
+        f"{SHARDS} quarter launches back to back "
+        f"{[round(m, 3) for m in quarter_ms]} ms, outputs equal; the "
+        f"quarters' extra {[round(m, 3) for m in extra]} ms, mean "
+        f"{float(np.mean(extra)):.3f} ms a window; window 2's longest "
+        f"lane's active steps per quarter {longest} (mean {mean_used:.1f})"
+        f"; {card}")
+
+
+def shard_fold_split(exp, devs, device, card) -> None:
+    """What a window queues besides its kernels, unsharded and at SHARDS
+    shards (stat_blocks SHARD_BLOCKS): the ops of the observables, the
+    per-shard block folds, the gather and the totals (`_products`),
+    counted once and timed with CUDA events after a warm-up, and the
+    gather alone."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.api import build_engine
+    from repro_torch.core import reduction
+
+    class CountOps(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func not in VIEW_OPS:
+                CountOps.n += 1
+            return func(*args, **(kwargs or {}))
+
+    aten = torch.ops.aten
+    VIEW_OPS = {aten.view.default, aten.reshape.default, aten.select.int,
+                aten.slice.Tensor, aten.unbind.int, aten.expand.default,
+                aten.alias.default, aten.detach.default}
+    out = []
+    for k in (1, SHARDS):
+        eng = build_engine(sharded(exp, k), device=devs if k > 1 else device)
+        eng.run_window()
+        disp = eng._dispatch
+
+        def products():
+            return disp._products(eng._pools, disp.extract_obs(eng._pools),
+                                  None, [None] * k)
+
+        products()
+        fold_ms = cuda_ms(products, reps=10)
+        CountOps.n = 0
+        with CountOps():
+            products()
+        n_ops = CountOps.n
+        v_loc = SHARD_BLOCKS // k
+        parts = [reduction.blocked_welford(o, v_loc)
+                 for o in disp.extract_obs(eng._pools)]
+        gather_ms = cuda_ms(
+            lambda: reduction.gather_blocks_over_axis(parts, eng.device),
+            reps=10)
+        out.append(f"{k} shard(s) {fold_ms:.4f} ms in {n_ops} ops (the "
+                   f"gather alone {gather_ms:.4f} ms)")
+        del eng, disp, parts
+    log(f"[sharded] 6a a window's products besides its kernels "
+        f"(observables, block folds, gather, totals; CUDA events): "
+        + "; ".join(out) + f"; {card}")
+
+
+def phase_sharded(device, main_recs, card) -> dict:
+    """Phase 6: the sharded farm and supervised recovery at full width,
+    each sharded run bitwise against its unsharded run at the same
+    stat_blocks. Returns each engine kernel's launches in its counted
+    sharded runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (
+        Ensemble,
+        Experiment,
+        FailurePlan,
+        Method,
+        Recovery,
+        Schedule,
+        build_engine,
+    )
+    from repro_torch.api.result import SimulationResult
+    from repro_torch.core.cwc.models import MODELS
+    from repro_torch.kernels.ssa_step import (
+        sparse_tau_window_call,
+        sparse_window_call,
+        ssa_window_call,
+        tau_window_call,
+    )
+    from repro_torch.runtime.supervisor import RunSupervisor
+
+    main = Experiment(model=MODELS[MAIN_MODEL](),
+                      ensemble=Ensemble.make(replicas=MAIN_REPLICAS),
+                      schedule=Schedule(t_end=MAIN_T_END,
+                                        n_windows=MAIN_WINDOWS),
+                      n_lanes=1024, use_kernel=True)
+    devs = shard_devices(SHARDS, device)
+    launches = dict(ssa_window=0, tau_window=0, sparse_window=0,
+                    sparse_tau_window=0)
+    eng = build_engine(sharded(main, SHARDS), device=devs)
+    log(f"[sharded] {SHARDS} shards of {MAIN_REPLICAS // SHARDS} lanes on "
+        f"{[str(d) for d in eng.devices]} ({torch.cuda.device_count()} "
+        f"card(s) visible), stat_blocks={SHARD_BLOCKS}; {card}")
+    del eng
+
+    # 6a: the dense exact path, sharded against unsharded, in turns
+    ref = None
+    walls = {}
+    for wb in (1, 4):
+        exp = main.with_(window_block=wb, pipeline_depth="auto")
+        n_disp = MAIN_WINDOWS // wb
+        for k in (1, SHARDS, SHARDS, 1):
+            res, n = run_counted(sharded(exp, k), ssa_window_call,
+                                 devs if k > 1 else device)
+            t = res.telemetry
+            if ref is None:
+                ref = res.records
+                if not all(np.isfinite(v).all() for r in ref
+                           for v in (r.mean, r.var, r.ci90)):
+                    raise AssertionError("6a: records not finite")
+                means = np.stack([r.mean for r in ref]).astype(np.float64)
+                m3 = np.stack([r.mean for r in main_recs])
+                rel = float(np.max(np.abs(means - m3)
+                                   / np.maximum(np.abs(m3), 1)))
+                if not rel <= MAIN_RTOL:
+                    raise AssertionError("6a: means disagree with phase 3")
+            elif not records_equal(res.records, ref):
+                raise AssertionError(f"6a: records of ({k} shards, W={wb}) "
+                                     "differ from the unsharded run's")
+            if n != MAIN_WINDOWS * k:
+                raise AssertionError(f"6a: {n} launches for {MAIN_WINDOWS} "
+                                     f"windows x {k} shards")
+            if not t.dispatches == t.host_syncs == n_disp:
+                raise AssertionError(
+                    f"6a: ({k} shards, W={wb}) {t.dispatches} dispatches, "
+                    f"{t.host_syncs} host syncs for {n_disp}")
+            if k > 1:
+                launches["ssa_window"] += n
+            walls.setdefault((wb, k), []).append(
+                (t.wall_time_s / MAIN_WINDOWS * 1e3, t.pipeline_depth,
+                 res._engine.depth_probe,
+                 [b[2] * 1e3 for b in res._engine.block_walls]))
+    for wb in (1, 4):
+        log(f"[sharded] 6a lv8 x {MAIN_REPLICAS} exact, W={wb}, depth "
+            f"auto (resolved {walls[(wb, SHARDS)][0][1]}): wall per window "
+            f"{SHARDS} shards "
+            f"{[round(w[0], 3) for w in walls[(wb, SHARDS)]]} ms, unsharded "
+            f"{[round(w[0], 3) for w in walls[(wb, 1)]]} ms; "
+            f"{MAIN_WINDOWS * SHARDS} launches, {MAIN_WINDOWS // wb} "
+            f"dispatches, host syncs per window {1 / wb:g}; {card}")
+    for (wb, k), runs in sorted(walls.items()):
+        # the probe reads the first block's pull; each block's enqueue
+        # wall shows whether a later dispatch waited for the device
+        if wb > 1:
+            log(f"[sharded] 6a W={wb}, {k} shard(s): depth probes "
+                + "; ".join(f"dispatch {p['dispatch_s'] * 1e3:.3f} ms, pull "
+                            f"{p['pull_s'] * 1e3:.3f} ms, host "
+                            f"{p['host_s'] * 1e3:.3f} ms -> depth "
+                            f"{p['depth']}, each block's dispatch "
+                            f"{[round(d, 3) for d in disp]} ms"
+                            for _, _, p, disp in runs))
+    shard_fold_split(main, devs, device, card)
+    log(f"[sharded] 6a records of {SHARDS} shards bitwise equal to the "
+        f"unsharded run's at W = 1 and 4; means within {MAIN_RTOL:g} of "
+        f"phase 3's (stat_blocks 1)")
+    shard_kernel_split(main, device, card)
+
+    # 6b: the other three engine kernels, sharded
+    sparse = Experiment(model=MODELS[SPARSE_MODEL](),
+                        ensemble=Ensemble.make(replicas=SPARSE_REPLICAS),
+                        schedule=Schedule(t_end=SPARSE_T_END,
+                                          n_windows=SPARSE_WINDOWS),
+                        n_lanes=1024, sparse=True, use_kernel=True)
+    cases = (
+        ("tau_window", "lv8 tau", main.with_(method=Method.TAU_LEAP),
+         SHARDS, tau_window_call, None),
+        ("sparse_window", "ring80 sparse exact", sparse, SPARSE_SHARDS,
+         sparse_window_call, 2),
+        ("sparse_tau_window", "ring80 sparse tau",
+         sparse.with_(method=Method.TAU_LEAP), SPARSE_SHARDS,
+         sparse_tau_window_call, 2))
+    for name, label, exp, k, counter, cut in cases:
+        kw = {} if cut is None else {"max_windows": cut}
+        n_win = cut or exp.schedule.n_windows
+        base, _ = run_counted(sharded(exp, 1), counter, device, **kw)
+        res, n = run_counted(sharded(exp, k), counter,
+                             shard_devices(k, device), **kw)
+        if n != n_win * k:
+            raise AssertionError(f"6b {label}: {n} launches for {n_win} "
+                                 f"windows x {k} shards")
+        if not records_equal(res.records, base.records):
+            raise AssertionError(f"6b {label}: records of {k} shards "
+                                 "differ from the unsharded run's")
+        if res.telemetry.dispatches != n_win:
+            raise AssertionError(f"6b {label}: dispatches differ")
+        launches[name] += n
+        log(f"[sharded] 6b {label}, {k} shards, {n_win} windows: {n} "
+            f"launches, records bitwise equal to the unsharded run's; "
+            f"wall per window {res.telemetry.wall_time_s / n_win * 1e3:.3f}"
+            f" ms against {base.telemetry.wall_time_s / n_win * 1e3:.3f} "
+            f"unsharded; {card}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    try:
+        # 6c: reshard-on-restore, a 4-shard save at window 4 resumed at
+        # 1 and at 2 shards
+        from repro_torch.api import simulate
+
+        path = f"{tmp}/four"
+        part = simulate(sharded(main, SHARDS), device=devs, max_windows=4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        part.checkpoint(path)
+        save_s = time.perf_counter() - t0
+        for k in (1, 2):
+            exp = sharded(main, k)
+            eng = build_engine(exp, device=shard_devices(k, device))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.restore(path)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            res = SimulationResult(exp, eng).resume()
+            if not records_equal(res.records, ref):
+                raise AssertionError(f"6c: the run resumed at {k} shards "
+                                     "differs from 6a's")
+            log(f"[sharded] 6c a {SHARDS}-shard save at window 4: "
+                f"{save_s:.3f} s; restored at {k} shard(s) in "
+                f"{restore_s:.3f} s, records bitwise equal to 6a's; {card}")
+
+        # 6d: supervised runs on 6a's cell
+        drills = (("crash", {2: "crash", 5: "ckpt_corrupt"}),
+                  ("shard loss", {3: "device_lost", 6: "device_lost"}),
+                  ("nan pool", {4: "nan_pool"}))
+        for label, plan in drills:
+            rec = Recovery(ckpt_dir=f"{tmp}/{label.replace(' ', '_')}",
+                           cadence=2, keep_last=2,
+                           inject=FailurePlan(schedule=plan))
+            exp = sharded(main, SHARDS).with_(recovery=rec)
+            sup = RunSupervisor(exp, rec, device=devs)
+            t0 = time.perf_counter()
+            res = sup.run()
+            wall = time.perf_counter() - t0
+            rep = res.recovery_report()
+            if not records_equal(res.records, ref):
+                raise AssertionError(f"6d {label}: records differ from "
+                                     "6a's clean run")
+            shrinks = [(e["from_shards"], e["to_shards"])
+                       for e in rep["events"] if e["event"] == "degraded"]
+            if label == "crash" and rep["restarts"] != 2:
+                raise AssertionError("6d crash: restarts != 2")
+            if label == "shard loss" and (
+                    shrinks != [(4, 2), (2, 1)]
+                    or rep["final_n_shards"] != 1):
+                raise AssertionError(f"6d shard loss: degraded {shrinks}")
+            if label == "nan pool" and \
+                    rep["faults_by_kind"].get("nan_pool", 0) < 1:
+                raise AssertionError("6d nan pool: the guard caught nothing")
+            log(f"[sharded] 6d drill {label} {plan}: {rep['restarts']} "
+                f"restarts, faults {rep['faults_by_kind']}"
+                + (f", shards {shrinks}" if shrinks else "")
+                + f", records bitwise equal to 6a's; run wall {wall:.3f} s; "
+                "recoveries (teardown, rebuild, restore s): "
+                + ", ".join(f"({a:.4f}, {b:.3f}, {c:.3f})"
+                            for a, b, c in sup.recovery_walls) + f"; {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1710,6 +2089,7 @@ def main() -> int:
     phase_steering(device, card)
     phase_steer_tau(device, tau_dense["win_ms"], card)
     phase_sketch_sparse(device, sparse["records"], sparse["win_ms"], card)
+    shard_launches = phase_sharded(device, dense["records"], card)
     entries = [
         ("ssa_window", "ssa_window.cu", "src/repro/kernels/ssa_step.py:64",
          dense),
@@ -1727,7 +2107,7 @@ def main() -> int:
         "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": replaces,
-        "launches": nums["launches"],
+        "launches": nums["launches"] + shard_launches.get(name, 0),
         "max_abs_err": max(worst[name], nums["err"]),
         "ms": nums["ms"],
         "plain_ms": nums["plain_ms"],

@@ -17,8 +17,13 @@ Layout (each module names the reference module it ports):
   core/tau_leap.py    adaptive tau-leaping (dense and sparse tables)
   core/reduction.py   blocked Welford statistics
   core/scheduler.py   lane-group scheduling policies
-  core/dispatch.py    window bodies (unfused and fused-kernel)
+  core/dispatch.py    window bodies (unfused and fused-kernel), the
+                      fused, sharded and host-loop strategies
   core/engine.py      SimConfig and SimulationEngine
+  ckpt/               the single-file checkpoint store
+  stats/, steer/      sketches and the between-block steering policy
+  runtime/            typed faults, the straggler watchdog and the
+                      supervised recovery loop
   kernels/            the hand-written CUDA kernels (exact and tau-leap
                       windows, Match), their plain twins, the chunk
                       loops and the nvcc build

@@ -20,6 +20,7 @@ from repro_torch.api.spec import (
     Method,
     Partitioning,
     Policy,
+    Recovery,
     Reduction,
     Schedule,
     Schema,
@@ -28,15 +29,18 @@ from repro_torch.api.spec import (
 )
 from repro_torch.core.stream import CsvSink
 from repro_torch.core.sweep import SweepSpec
+from repro_torch.runtime.fault import FailurePlan
 
 __all__ = [
     "CsvSink",
     "Ensemble",
     "Experiment",
     "ExperimentError",
+    "FailurePlan",
     "Method",
     "Partitioning",
     "Policy",
+    "Recovery",
     "Reduction",
     "Schedule",
     "Schema",

@@ -3,7 +3,7 @@
 
 Wraps the running (or finished) engine: streamed records, per-sweep-
 point grouped statistics, raw trajectories, sketches, the steering
-report and telemetry. The handle
+report, a supervised run's recovery report and telemetry. The handle
 owns the run loop, so a run cut by `max_windows=` continues in-process
 with `.resume()`.
 """
@@ -51,9 +51,12 @@ class Telemetry:
     ran at; peak_inflight_blocks: the most rings queued at once.
     snapshot_saves / ckpt_flushes: checkpoints served from a ring
     snapshot / that had to flush the pipeline.
-
-    The reference's straggler_*, restarts and stall_redispatches fields
-    come with supervision (ROADMAP queue 1, item 15).
+    straggler_windows: (window, wall_s, rolling median) rows the
+    straggler watchdog flagged (one sample per block under supersteps);
+    straggler_rate: flagged over observed windows.
+    restarts: engine teardowns and restores of a supervised run
+    (Experiment.recovery); stall_redispatches: straggler re-dispatches,
+    counted apart (they never use the max_restarts budget).
     """
 
     wall_time_s: float
@@ -70,6 +73,10 @@ class Telemetry:
     peak_inflight_blocks: int = 0
     snapshot_saves: int = 0
     ckpt_flushes: int = 0
+    straggler_windows: tuple = ()
+    straggler_rate: float = 0.0
+    restarts: int = 0
+    stall_redispatches: int = 0
 
 
 def _peak_rss_bytes() -> int:
@@ -198,6 +205,12 @@ class SimulationResult:
         log), or None when the Experiment carried no active Steering."""
         return self._engine.steering_report()
 
+    def recovery_report(self) -> Optional[dict]:
+        """The RunSupervisor's event log and summary (restarts, faults by
+        kind, the final shard count, events) for a supervised run; None
+        otherwise."""
+        return getattr(self, "_recovery", None)
+
     # ------------------------------------------------------ telemetry
     @property
     def telemetry(self) -> Telemetry:
@@ -216,7 +229,11 @@ class SimulationResult:
             pipeline_depth_effective=eng.pipeline_depth_effective,
             peak_inflight_blocks=eng.peak_inflight_blocks,
             snapshot_saves=eng.n_snapshot_saves,
-            ckpt_flushes=eng.n_ckpt_flushes)
+            ckpt_flushes=eng.n_ckpt_flushes,
+            straggler_windows=tuple(eng.watchdog.flagged),
+            straggler_rate=eng.watchdog.straggler_rate(),
+            restarts=getattr(self, "_restarts", 0),
+            stall_redispatches=getattr(self, "_stall_redispatches", 0))
 
     def __repr__(self) -> str:
         state = "completed" if self.completed else (

@@ -6,7 +6,9 @@ engine strings, sweep -> per-instance rate matrix, PER_POINT ->
 instance group ids), attaches sinks, and drives the window loop through
 the returned `SimulationResult`, so checkpoint/resume and partial runs
 share one code path. Runs on the CUDA device unless the caller passes
-`device="cpu"`; with no device and no GPU it raises.
+`device="cpu"`; with no device and no GPU it raises. A multi-shard
+`Partitioning` takes one device for every shard, or one per shard; a
+`recovery` run is handed to `runtime.supervisor.RunSupervisor`.
 """
 from __future__ import annotations
 
@@ -31,7 +33,12 @@ def observable_names(model) -> list[str]:
 
 def build_engine(experiment: Experiment, device=None) -> SimulationEngine:
     """Compile an Experiment down to a ready-to-run engine (no windows
-    are run). Exposed for benchmarks; prefer simulate()."""
+    are run). Exposed for benchmarks; prefer simulate().
+
+    device: one device (it holds every shard), a sequence of n_shards
+    devices (shard k on entry k; entries may repeat), or None: the CUDA
+    device, and under a multi-shard Partitioning shard k on cuda:k,
+    refused when fewer cards are visible."""
     experiment.validate()
     ens = experiment.ensemble
     sched = experiment.schedule
@@ -52,6 +59,7 @@ def build_engine(experiment: Experiment, device=None) -> SimulationEngine:
             kernel_chunk_steps=experiment.kernel_chunk_steps,
             kernel_max_chunks=experiment.kernel_max_chunks,
             stat_blocks=part.blocks if part is not None else 1,
+            n_shards=part.n_shards if part is not None else 1,
             method=experiment.method.value,
             tau_eps=float(experiment.tau_eps),
             tau_fallback=float(experiment.tau_fallback),
@@ -66,7 +74,8 @@ def build_engine(experiment: Experiment, device=None) -> SimulationEngine:
             device=device, sketch=experiment.sketch,
             steering=experiment.steering)
     except ValueError as e:
-        # engine-side config/table errors surface in the API's vocabulary
+        # engine-side config/table errors and device placement surface
+        # in the API's vocabulary
         raise ExperimentError(str(e)) from e
     if ens.sweep is not None:
         try:
@@ -96,7 +105,26 @@ def simulate(experiment: Experiment, *, device=None,
     file, so the replay keeps it complete).
     max_windows: stop after this many windows; the returned handle's
     `.resume()` continues the same run in-process.
+    device: as for build_engine.
+
+    With `experiment.recovery` set, the run is handed to
+    `runtime.supervisor.RunSupervisor` (cadenced checkpoints, restart on
+    a fault, elastic shard loss), which owns checkpointing and drives
+    the run to its end, so checkpoint_path, resume and max_windows are
+    refused alongside it.
     """
+    if experiment.recovery is not None:
+        if checkpoint_path or resume or max_windows is not None:
+            raise ExperimentError(
+                "Experiment.recovery owns checkpointing and drives the "
+                "run to completion; drop checkpoint_path/resume/"
+                "max_windows (set Recovery.ckpt_dir and cadence "
+                "instead)")
+        experiment.validate()  # refuses Recovery(workers > 1), item 16
+        from repro_torch.runtime.supervisor import RunSupervisor
+
+        return RunSupervisor(experiment, experiment.recovery,
+                             device=device).run()
     engine = build_engine(experiment, device=device)
     if resume:
         if not checkpoint_path:

@@ -4,28 +4,31 @@
 names and defaults, so one spec literal builds in both packages. A
 spec is pure data; `simulate()` compiles and runs it.
 
-Options whose machinery is not ported yet (multi-shard partitioning,
-recovery) are refused by `validate()` with an `ExperimentError` that
-names their ROADMAP queue-1 item; none is silently ignored.
+The one option whose machinery is not ported yet, the multi-process
+farm (`Recovery(workers > 1)`), is refused by `validate()` with an
+`ExperimentError` that names its ROADMAP queue-1 item; nothing is
+silently ignored.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from enum import Enum
-from typing import Any, Optional, Sequence, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 
 from repro_torch.core.cwc.rules import CWCModel
 from repro_torch.core.reactions import ReactionSystem
 from repro_torch.core.sweep import SweepSpec
+from repro_torch.runtime.supervisor import Recovery
 from repro_torch.stats.sketch import SketchSpec
 from repro_torch.steer.policy import Steering
 
 __all__ = [
     "Ensemble", "Experiment", "ExperimentError", "Method", "Partitioning",
-    "Policy", "Reduction", "Schedule", "Schema", "SketchSpec", "Steering",
+    "Policy", "Recovery", "Reduction", "Schedule", "Schema", "SketchSpec",
+    "Steering",
 ]
 
 
@@ -79,9 +82,17 @@ class Reduction(Enum):
 
 @dataclass(frozen=True)
 class Partitioning:
-    """How the instance pool is partitioned. Only n_shards == 1 runs in
-    the port; stat_blocks pins the Welford merge tree to that many
-    contiguous instance blocks, as in the reference."""
+    """How the instance pool is partitioned over devices.
+
+    n_shards: shards of the pool; shard k owns the contiguous instance
+    block [k*I/K, (k+1)*I/K) on its own device (simulate's `device`).
+    axis: the farm axis's name (the reference's mesh axis; kept so a
+    spec literal builds in both packages).
+    stat_blocks: contiguous blocks the per-window statistics reduce over
+    (defaults to n_shards). Records depend on this number, never on the
+    shard count, so pin it when comparing runs across shard counts or
+    resuming a checkpoint on another shard count.
+    """
 
     n_shards: int = 1
     axis: str = "data"
@@ -96,6 +107,14 @@ class Partitioning:
         if self.n_shards < 1:
             raise ValueError(
                 f"Partitioning.n_shards must be >= 1, got {self.n_shards}")
+        if not self.axis or not isinstance(self.axis, str):
+            raise ValueError(
+                f"Partitioning.axis must be a mesh axis name, "
+                f"got {self.axis!r}")
+        if n_instances % self.n_shards:
+            raise ValueError(
+                f"n_instances ({n_instances}) must divide evenly over "
+                f"Partitioning.n_shards ({self.n_shards})")
         v = self.blocks
         if v < 1:
             raise ValueError(
@@ -103,11 +122,33 @@ class Partitioning:
         if v % self.n_shards:
             raise ValueError(
                 f"Partitioning.stat_blocks ({v}) must be a multiple of "
-                f"n_shards ({self.n_shards})")
+                f"n_shards ({self.n_shards}) so each shard owns whole "
+                "blocks")
         if n_instances % v:
             raise ValueError(
                 f"n_instances ({n_instances}) must divide evenly into "
                 f"Partitioning.stat_blocks ({v}) blocks")
+
+    def degrade(self, n_instances: int, n_lost: int = 1) -> "Partitioning":
+        """Elastic shard loss: the largest valid shard count d <=
+        n_shards - n_lost (d divides n_instances and the block count; d
+        = 1 always does, so any loss short of every device degrades).
+        stat_blocks is pinned to this partitioning's block count, so a
+        run resumed on the survivors stays bitwise the uninterrupted
+        one."""
+        if n_lost < 1:
+            raise ValueError(f"n_lost must be >= 1, got {n_lost}")
+        if n_lost >= self.n_shards:
+            raise ValueError(
+                f"cannot degrade: lost {n_lost} of {self.n_shards} "
+                "shards (no survivors)")
+        blocks = self.blocks
+        target = self.n_shards - n_lost
+        d = next(d for d in range(target, 0, -1)
+                 if n_instances % d == 0 and blocks % d == 0)
+        out = Partitioning(n_shards=d, axis=self.axis, stat_blocks=blocks)
+        out.validate(n_instances)
+        return out
 
 
 @dataclass(frozen=True)
@@ -232,8 +273,14 @@ class Experiment:
     `SimulationResult.steering_report`). Steered runs advance in
     lock-step blocks, even at window_block=1.
 
-    recovery and a multi-shard partitioning are not ported yet and are
-    refused by validate().
+    partitioning: a Partitioning — the pool in n_shards contiguous
+    shards, each on its own device, the statistics over stat_blocks
+    blocks; records are bitwise the same for any shard count dividing
+    stat_blocks.
+    recovery: a Recovery — supervised runs (cadenced checkpoints,
+    restart on a fault, elastic shard loss, fault drills;
+    `SimulationResult.recovery_report`). Recovery(workers > 1), the
+    multi-process farm, is not ported yet and is refused by validate().
     """
 
     model: Union[CWCModel, ReactionSystem]
@@ -257,7 +304,7 @@ class Experiment:
     sparse: bool = False
     sketch: Optional[SketchSpec] = None
     steering: Optional[Steering] = None
-    recovery: Optional[Any] = None
+    recovery: Optional[Recovery] = None
 
     def __post_init__(self):
         object.__setattr__(self, "method", Method.coerce(self.method))
@@ -327,6 +374,15 @@ class Experiment:
             except ValueError as e:
                 raise ExperimentError(str(e)) from e
         self._validate_steering()
+        if self.recovery is not None:
+            if not isinstance(self.recovery, Recovery):
+                raise ExperimentError(
+                    "Experiment.recovery must be a Recovery, "
+                    f"got {type(self.recovery).__name__}")
+            try:
+                self.recovery.validate()
+            except ValueError as e:
+                raise ExperimentError(str(e)) from e
         for s in self.sinks:
             if not callable(s):
                 raise ExperimentError(f"sink {s!r} is not callable")
@@ -364,11 +420,9 @@ class Experiment:
         """Options whose machinery the port does not have yet, each
         with its ROADMAP queue-1 item."""
         unported = [
-            (self.partitioning is not None
-             and self.partitioning.n_shards > 1,
-             "partitioning with n_shards > 1", "item 14, sharded farm"),
-            (self.recovery is not None, "recovery",
-             "items 15-16, supervision and the multi-process farm"),
+            (self.recovery is not None and self.recovery.workers > 1,
+             "recovery with workers > 1",
+             "item 16, the multi-process farm"),
         ]
         for hit, what, item in unported:
             if hit:

@@ -47,8 +47,20 @@ per-lane step/leap counters it reads ride the block's ring, and its
 actions are applied on the device by out-of-place ops, so a decision
 point adds no host sync and writes no pool leaf in place.
 
-Not ported yet (each raises in `repro_torch.api` before an engine is
-built): supervision and multi-shard partitioning.
+Shards (`n_shards=K`, `Partitioning` in the API): the pool is K
+contiguous per-shard `LaneState`s (`_pools`), each on its own device
+(`devices`, entries may repeat), advanced by `FusedDispatch` (K
+launches a window, one dispatch); each shard's Welford block partials,
+grouped partials and sketch counts meet on the lead device
+(`devices[0]`), so a window is still ONE packed row and one host pull,
+and records are bitwise the unsharded run's at the same stat_blocks.
+Checkpoints hold the global pool (each shard copied at its row offset)
+and restore into any shard count.
+
+Faults: the guards raise `runtime.fault.InvariantViolation`, a
+`RecoverableError` the supervisor (`runtime/supervisor.py`) catches;
+the straggler watchdog (`runtime/straggler.py`) observes every window
+and every collected block.
 """
 from __future__ import annotations
 
@@ -56,7 +68,6 @@ import collections
 import math
 import time
 from dataclasses import dataclass
-from functools import partial
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -66,8 +77,12 @@ from repro_torch.ckpt import store as ckpt_store
 from repro_torch.core import reduction
 from repro_torch.core.cwc.compile import compile_model
 from repro_torch.core.cwc.rules import CWCModel
-from repro_torch.core.device import resolve_device, to_device
-from repro_torch.core.dispatch import FusedDispatch, HostLoopDispatch
+from repro_torch.core.device import resolve_devices, to_device
+from repro_torch.core.dispatch import (
+    FusedDispatch,
+    HostLoopDispatch,
+    WindowResult,
+)
 from repro_torch.core.gillespie import (
     LaneState,
     init_lanes,
@@ -78,6 +93,8 @@ from repro_torch.core.reactions import ReactionSystem, sparse_tables
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.core.stream import StatsRecord, StatsStream
 from repro_torch.core.tau_leap import tau_tables
+from repro_torch.runtime.fault import InvariantViolation
+from repro_torch.runtime.straggler import WindowWatchdog
 from repro_torch.stats.sketch import SketchSpec, WindowSketch, window_sketch
 from repro_torch.steer.policy import Steering, SteeringActions, SteeringPolicy
 
@@ -105,6 +122,9 @@ class SimConfig:
     kernel_chunk_steps: int = 256
     kernel_max_chunks: int = 64
     stat_blocks: int = 1  # contiguous blocks of the Welford merge tree
+    # contiguous pool shards, each on its own device (FusedDispatch);
+    # records depend on stat_blocks only, never on this number
+    n_shards: int = 1
     # simulation algorithm: "exact" (Gillespie's direct SSA) or
     # "tau_leap" (adaptive Cao tau, Poisson reaction counts, per-lane
     # exact fallback — core/tau_leap.py)
@@ -153,7 +173,7 @@ class SimConfig:
             raise ValueError(f"SimConfig.policy must be one of "
                              f"{POLICIES}, got {self.policy!r}")
         for name in ("kernel_chunk_steps", "kernel_max_chunks",
-                     "stat_blocks", "n_lanes", "n_windows"):
+                     "stat_blocks", "n_lanes", "n_windows", "n_shards"):
             if getattr(self, name) < 1:
                 raise ValueError(f"SimConfig.{name} must be >= 1, got "
                                  f"{getattr(self, name)}")
@@ -161,6 +181,15 @@ class SimConfig:
             raise ValueError(
                 f"n_instances ({self.n_instances}) must divide evenly "
                 f"into stat_blocks ({self.stat_blocks}) blocks")
+        if self.stat_blocks % self.n_shards:
+            raise ValueError(
+                f"stat_blocks ({self.stat_blocks}) must be a multiple of "
+                f"n_shards ({self.n_shards}) so each shard owns whole "
+                "blocks")
+        if self.n_shards > 1 and self.host_loop:
+            raise ValueError(
+                "sharded dispatch is incompatible with host_loop=True; "
+                "the host loop is a single-device baseline")
         if self.method not in METHODS:
             raise ValueError(
                 f"SimConfig.method must be 'exact' or 'tau_leap', got "
@@ -208,22 +237,13 @@ class _InFlight(NamedTuple):
     dispatch_wall: float  # host wall to ENQUEUE the block (async)
     obs_row_bytes: int  # one window's obs footprint (schema-iii acct)
     ring_bytes: int  # the queued ring (+ snapshot) footprint
-    snapshot: Optional[LaneState]  # the pool at this block's entry,
-    #   held by reference (nothing writes a pool leaf in place, see
-    #   core/dispatch.py) — lets checkpoint() save this block's entry
-    #   boundary while it is still in flight
-    snap_ready: Optional[torch.cuda.Event]  # recorded before the block's
-    #   launches: the snapshot's leaves are complete once it has run
-
-
-class InvariantViolation(RuntimeError):
-    """A host-side guard on the pulled window statistics tripped; the
-    pool state is untrusted from this window on."""
-
-    def __init__(self, msg: str, window: int, check: str):
-        super().__init__(msg)
-        self.window = window
-        self.check = check
+    snapshot: Optional[list]  # the per-shard pools at this block's
+    #   entry, held by reference (nothing writes a pool leaf in place,
+    #   see core/dispatch.py) — lets checkpoint() save this block's
+    #   entry boundary while it is still in flight
+    snap_ready: Optional[dict]  # device -> event recorded before the
+    #   block's launches there: the snapshot's leaves are complete once
+    #   it has run
 
 
 def resolve_observables(model):
@@ -246,7 +266,11 @@ class SimulationEngine:
                  group_ids=None, record_trajectories: bool = False,
                  device=None, sketch: Optional[SketchSpec] = None,
                  steering: Optional[Steering] = None):
-        self.device = resolve_device(device)
+        # one device per shard (shard k owns the contiguous instance
+        # block [k*I/K, (k+1)*I/K)); the lead device holds the gathered
+        # statistics, the rings and every global tensor
+        self.devices = resolve_devices(device, cfg.n_shards)
+        self.device = self.devices[0]
         self.system, self.obs_names, self.obs_idx = resolve_observables(
             model)
         self.cfg = cfg
@@ -254,26 +278,21 @@ class SimulationEngine:
                                 cfg.n_windows)
         self.stream = StatsStream()
         self.scheduler = Scheduler(
-            cfg.n_instances, min(cfg.n_lanes, cfg.n_instances),
-            policy=("static_rr" if cfg.schema == "i" else cfg.policy))
-        # the dense comb unroll's MAX_COEF ceiling binds only when the
-        # dense step runs
-        self._tensors_base = system_tensors(self.system, device=self.device,
-                                            require_dense=not cfg.sparse)
-        self._sparse_tensors = (sparse_system_tensors(
-            sparse_tables(self.system), device=self.device)
-            if cfg.sparse and cfg.method == "exact" else None)
-        # the method seam: tau-leaping's tables (dense or sparse form),
-        # None for exact SSA
-        self._tau_tables = (tau_tables(self.system, sparse=cfg.sparse,
-                                       device=self.device)
-                            if cfg.method == "tau_leap" else None)
+            cfg.n_instances,
+            min(cfg.n_lanes, cfg.n_instances // cfg.n_shards),
+            policy=("static_rr" if cfg.schema == "i" else cfg.policy),
+            n_shards=cfg.n_shards)
+        # the system's tables per device: (dense base, sparse exact or
+        # None, tau or None); the lead device's are built here
+        self._tables: dict = {}
+        self._tensors_base, self._sparse_tensors, self._tau_tables = (
+            self._tables_on(self.device))
         # shared rates stay (R,) on the device (the kernel keeps them in
         # shared memory); a sweep installs an (I, R) matrix
         self.rates = np.broadcast_to(
             self.system.rates, (cfg.n_instances, self.system.n_reactions))
-        self._rates_dev = self._tensors_base[3]
         self._dispatch: Optional[FusedDispatch] = None
+        self._install_rates(self._tensors_base[3])
         if rates is not None:
             self.set_rates(rates)
         self._window = 0
@@ -316,24 +335,24 @@ class SimulationEngine:
         self._cum_leaps = 0
         self._group_ids = None
         self._group_ids_dev = None
-        self._grouped_fn = None
+        self._gids_shards: Optional[list] = None
         self._n_groups = 0
         self._grouped: list[reduction.Stats] = []
         # sketches: the bin geometry resolved from the model's t=0
         # observables (float64, as the reference resolves it), its
-        # operands on the device, and the pulled WindowSketch per window
+        # operands per device, and the pulled WindowSketch per window
         self._sketch = None
-        self._sketch_dev = None
+        self._sketch_dev: dict = {}
         self._sketches: list[WindowSketch] = []
         if sketch is not None:
             x0 = np.asarray(self.system.x0, np.float64)
             obs0 = np.asarray(
                 [x0[list(ii)].sum() for ii in self.obs_idx], np.float64)
             sk = self._sketch = sketch.resolve(obs0)
-            self._sketch_dev = (
-                to_device(sk.lo, self.device),
-                to_device(sk.inv_width, self.device),
-                to_device(sk.thresholds, self.device) if sk.n_thr else None)
+            for d in dict.fromkeys(self.devices):
+                self._sketch_dev[d] = (
+                    to_device(sk.lo, d), to_device(sk.inv_width, d),
+                    to_device(sk.thresholds, d) if sk.n_thr else None)
         if group_ids is not None:
             self.set_groups(group_ids)
         self._steer: Optional[SteeringPolicy] = None
@@ -353,11 +372,77 @@ class SimulationEngine:
                 steering, cfg.n_instances, n_points=(self._n_groups or 1),
                 n_windows=cfg.n_windows,
                 tau_leap=(cfg.method == "tau_leap"))
-        self._perm_cache: Optional[torch.Tensor] = None
+        # the straggler watchdog observes every window's wall (every
+        # collected block's under supersteps); flags surface in
+        # Telemetry.straggler_windows
+        self.watchdog = WindowWatchdog()
+        self._perm_cache: Optional[list] = None
         self._dispatch = (HostLoopDispatch if cfg.host_loop
                           else FusedDispatch)(self)
         self._pool = init_lanes(self.system, cfg.n_instances, cfg.seed,
                                 device=self.device)
+
+    # ----------------------------------------------------------- shards
+    def _tables_on(self, device) -> tuple:
+        """(dense base tensors, sparse exact tables or None, tau tables or
+        None) of the system on `device`, built once per device."""
+        if device not in self._tables:
+            cfg = self.cfg
+            # the dense comb unroll's MAX_COEF ceiling binds only when
+            # the dense step runs
+            self._tables[device] = (
+                system_tensors(self.system, device=device,
+                               require_dense=not cfg.sparse),
+                sparse_system_tensors(sparse_tables(self.system),
+                                      device=device)
+                if cfg.sparse and cfg.method == "exact" else None,
+                # the method seam: tau-leaping's tables (dense or sparse
+                # form), None for exact SSA
+                tau_tables(self.system, sparse=cfg.sparse, device=device)
+                if cfg.method == "tau_leap" else None)
+        return self._tables[device]
+
+    def _split(self, a) -> list:
+        """A global (I, ...) tensor as its per-shard row blocks, each on
+        its shard's device (views when that is `a`'s own device)."""
+        if len(self.devices) == 1:
+            return [a]
+        per = a.shape[0] // len(self.devices)
+        return [a[k * per:(k + 1) * per].to(d)
+                for k, d in enumerate(self.devices)]
+
+    @property
+    def _pool(self) -> LaneState:
+        """The whole pool. Unsharded, the one shard's LaneState; sharded,
+        the shards' leaves concatenated on the lead device (a gather:
+        the hot paths read `_pools`)."""
+        if len(self._pools) == 1:
+            return self._pools[0]
+        return LaneState(*(torch.cat([getattr(p, f).to(self.device)
+                                      for p in self._pools])
+                           for f in LaneState._fields))
+
+    @_pool.setter
+    def _pool(self, pool: LaneState) -> None:
+        """Install a whole pool, split into the shards' row blocks on
+        their devices (the leaves are replaced, never written)."""
+        self._pools = [LaneState(*leaves) for leaves in
+                       zip(*(self._split(a) for a in pool))]
+
+    def _install_rates(self, rates_dev) -> None:
+        """Make `rates_dev` ((R,) shared or (I, R) per lane, on the lead
+        device) the run's rates: per-lane rows are split by shard,
+        shared rates copied once to each device, and the kernel tables
+        rebound to them."""
+        self._rates_dev = rates_dev
+        if rates_dev.ndim == 2:
+            shards = self._split(rates_dev)
+        else:
+            copies = {d: rates_dev.to(d) for d in dict.fromkeys(self.devices)}
+            shards = [copies[d] for d in self.devices]
+        self._rates_shards = shards
+        if self._dispatch is not None:
+            self._dispatch.set_rates(shards)
 
     # -------------------------------------------------------- re-spec
     def set_rates(self, rates) -> None:
@@ -371,9 +456,7 @@ class SimulationEngine:
             raise ValueError(f"rates must have shape {want}, got "
                              f"{rates.shape}")
         self.rates = rates
-        self._rates_dev = torch.as_tensor(rates, device=self.device)
-        if self._dispatch is not None:
-            self._dispatch.set_rates(self._rates_dev)
+        self._install_rates(torch.as_tensor(rates, device=self.device))
 
     def set_groups(self, group_ids) -> None:
         """Enable grouped reduction: group_ids (I,) maps each instance
@@ -386,59 +469,74 @@ class SimulationEngine:
         # through pinned memory: steering regroups between blocks, and a
         # copy from pageable memory would wait for the queued work
         self._group_ids_dev = to_device(ids, self.device)
+        per = len(ids) // len(self.devices)
+        self._gids_shards = (
+            [self._group_ids_dev] if len(self.devices) == 1 else
+            [to_device(ids[k * per:(k + 1) * per], d)
+             for k, d in enumerate(self.devices)])
         self._n_groups = int(ids.max()) + 1
-        if self.cfg.stat_blocks == 1:
-            self._grouped_fn = partial(reduction.grouped_stats,
-                                       n_groups=self._n_groups)
-        else:
-            def grouped_fn(obs, gids, n_groups=self._n_groups,
-                           n_blocks=self.cfg.stat_blocks):
-                return reduction.finalize(reduction.merge_blocks(
-                    reduction.blocked_grouped_welford(obs, gids, n_groups,
-                                                      n_blocks)))
-
-            self._grouped_fn = grouped_fn
 
     # ------------------------------------------------------------------
-    def _permutation(self) -> torch.Tensor:
-        """Concatenated, padded scheduler groups as a device index map
-        (cached unless the predictive policy regroups every window)."""
+    def _permutations(self) -> list:
+        """The concatenated, padded scheduler groups as one shard-local
+        device index map per shard (the groups are shard-major and never
+        mix shards); cached unless the predictive policy regroups every
+        window."""
         predictive = self.scheduler.policy == "predictive"
         if not predictive and self._perm_cache is not None:
             return self._perm_cache
-        perm = to_device(
-            np.concatenate(self.scheduler.groups()).astype(np.int64),
-            self.device)
+        perm = np.concatenate(self.scheduler.groups()).astype(np.int64)
+        k_n = len(self.devices)
+        n, per = perm.shape[0] // k_n, self.cfg.n_instances // k_n
+        perms = [to_device(perm[k * n:(k + 1) * n] - k * per, d)
+                 for k, d in enumerate(self.devices)]
         if not predictive:
-            self._perm_cache = perm
-        return perm
+            self._perm_cache = perms
+        return perms
 
     # ------------------------------------------------------------------
-    def _sketch_eval(self, obs):
-        """(hist, rare) of one window's observables on the device,
-        grouped by the CURRENT lane->point map (a steering reallocation
-        regroups the next window's sketch)."""
-        lo, inv_width, thr = self._sketch_dev
-        gids = self._group_ids_dev
+    def _sketch_eval(self, obs, gids=None):
+        """(hist, rare) of observables `obs` on their device, grouped by
+        `gids` (a shard's slice of the lane->point map) or by the CURRENT
+        whole map (a steering reallocation regroups the next window's
+        sketch)."""
+        lo, inv_width, thr = self._sketch_dev[obs.device]
+        if gids is None:
+            gids = self._group_ids_dev
         return window_sketch(
             obs, gids, self._n_groups if gids is not None else 1, lo,
             inv_width, self._sketch.n_bins, thr)
 
-    def _pack_window(self, obs, steps_sum, leaps_sum, truncated):
-        """One window's small results as ONE float64 device row: the
-        record's moments (mean, var, ci90, n), the pool's step/leap
-        totals, the truncation flag and, with a sketch, its int32
-        histogram and rare counts (below 2^31, so widened exactly). The
-        per-window and the superstep paths both pull this row, so their
-        records come from the same ops on the same values."""
-        stats = reduction.blocked_stats(obs, self.cfg.stat_blocks)
+    def _pack_window(self, res: WindowResult):
+        """One window's small results as ONE float64 row on the lead
+        device: the record's moments (mean, var, ci90, n) folded from the
+        window's block stack, the pool's step/leap totals, the truncation
+        flag and, with a sketch, its int32 histogram and rare counts
+        (below 2^31, so widened exactly). The per-window and the
+        superstep paths both pull this row, and every dispatch hands the
+        same stack, so their records come from the same ops on the same
+        values."""
+        stats = reduction.finalize(reduction.merge_blocks(res.stack))
+        truncated = res.truncated
         if truncated is None:  # the unfused paths have no event budget
-            truncated = torch.zeros((), dtype=torch.bool, device=obs.device)
-        parts = [stats.mean, stats.var, stats.ci90, stats.n, steps_sum,
-                 leaps_sum, truncated]
-        if self._sketch is not None:
-            parts.extend(p for p in self._sketch_eval(obs) if p is not None)
+            truncated = torch.zeros((), dtype=torch.bool, device=self.device)
+        parts = [stats.mean, stats.var, stats.ci90, stats.n, res.steps_sum,
+                 res.leaps_sum, truncated]
+        if res.sketch is not None:
+            parts.extend(p for p in res.sketch if p is not None)
         return torch.cat([p.reshape(-1).to(torch.float64) for p in parts])
+
+    def _gathered(self, parts) -> torch.Tensor:
+        """Per-shard tensors concatenated in shard order on the lead
+        device (the one tensor when unsharded)."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.device) for p in parts])
+
+    def _grouped_stats(self, res: WindowResult) -> torch.Tensor:
+        """The window's per-group Stats, stacked (4, G, n_obs)."""
+        return torch.stack(list(reduction.finalize(
+            reduction.merge_blocks(res.grouped))))
 
     def _emit_row(self, w: int, row: np.ndarray) -> StatsRecord:
         """Check one pulled `_pack_window` row (truncation, guards),
@@ -488,30 +586,28 @@ class SimulationEngine:
         t0 = time.perf_counter()
         res = self._dispatch.advance(horizon)
         if self.scheduler.policy == "predictive":
-            steps_delta = res.steps_delta.cpu().numpy()
+            steps_delta = self._gathered(res.steps_delta).cpu().numpy()
             self.n_host_syncs += 1
             self.scheduler.record_costs(np.arange(cfg.n_instances),
                                         steps_delta)
         self.wall_times.append(time.perf_counter() - t0)
-        obs = res.obs
-        row = self._pack_window(obs, self._pool.steps.sum(dtype=torch.int64),
-                                self._pool.leaps.sum(dtype=torch.int64),
-                                res.truncated)
+        self.watchdog.observe(w, self.wall_times[-1])
+        row = self._pack_window(res)
         t_pull = time.perf_counter()
         row = row.cpu().numpy()  # ONE combined blocking pull
         self.n_host_syncs += 1
         rec = self._emit_row(w, row)
-        obs_bytes = obs.numel() * obs.element_size()
+        obs_bytes = sum(o.numel() * o.element_size() for o in res.obs)
         if self._buffering():
-            self._samples.append(obs.cpu().numpy())
+            # the one place a sharded window's observables cross shards
+            self._samples.append(self._gathered(res.obs).cpu().numpy())
             self.n_host_syncs += 1
             self._peak_buffered = max(
                 self._peak_buffered, sum(s.nbytes for s in self._samples))
         else:  # schema iii: on-line reduction, window dropped immediately
             self._peak_buffered = max(self._peak_buffered, obs_bytes)
-        if self._grouped_fn is not None:
-            g = self._grouped_fn(obs, self._group_ids_dev)
-            leaves = torch.stack(list(g)).cpu().numpy()
+        if res.grouped is not None:
+            leaves = self._grouped_stats(res).cpu().numpy()
             self._grouped.append(reduction.Stats(*leaves))
             self.n_host_syncs += 1
         self.stream.emit(rec)
@@ -592,18 +688,31 @@ class SimulationEngine:
             self._staging()
 
     def _staging(self) -> tuple:
-        """(pinned host buffer per pool leaf, side stream) for a save's
-        pool copy on the card, made once and reused by every save."""
+        """(pinned host buffer per leaf of the whole pool, {device: side
+        stream}) for a save's pool copy on the card, made once and
+        reused by every save."""
         if self._save_staging is None:
+            n = self.cfg.n_instances
             self._save_staging = (
-                {f: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                 for f, v in zip(LaneState._fields, self._pool)},
-                torch.cuda.Stream(self.device))
+                {f: torch.empty((n,) + v.shape[1:], dtype=v.dtype,
+                                pin_memory=True)
+                 for f, v in zip(LaneState._fields, self._pools[0])},
+                {d: torch.cuda.Stream(d) for d in dict.fromkeys(self.devices)})
         return self._save_staging
 
+    def _record_events(self) -> dict:
+        """{device: an event recorded now on its current stream} for
+        every device a shard occupies."""
+        events = {}
+        for d in dict.fromkeys(self.devices):
+            events[d] = torch.cuda.Event()
+            events[d].record(torch.cuda.current_stream(d))
+        return events
+
     def _observe(self) -> torch.Tensor:
-        """(I, n_obs) observables of the current pool."""
-        return self._dispatch._extract_obs(self._pool.x)
+        """(I, n_obs) observables of the current pool, on the lead
+        device."""
+        return self._gathered(self._dispatch.extract_obs(self._pools))
 
     def _next_block_windows(self, limit: int) -> int:
         """Size of the next superstep: realigned to the absolute
@@ -642,38 +751,38 @@ class SimulationEngine:
         w0 = self._dispatched
         n_win = self._next_block_windows(limit)
         horizons = self.grid[w0:w0 + n_win]
-        snapshot = self._pool if self._snap_enabled else None
+        snapshot = self._pools if self._snap_enabled else None
         snap_ready = None
         if snapshot is not None and self.device.type == "cuda":
-            snap_ready = torch.cuda.Event()
-            snap_ready.record(torch.cuda.current_stream(self.device))
+            snap_ready = self._record_events()
         t0 = time.perf_counter()
         res = self._dispatch.advance_block(horizons)
-        ring = {"rows": torch.stack([
-            self._pack_window(res.obs[w], res.steps_end[w], res.leaps_end[w],
-                              res.truncated and res.truncated[w])
-            for w in range(n_win)])}
-        if self._grouped_fn is not None:
-            ring["grouped"] = torch.stack([
-                torch.stack(list(self._grouped_fn(o, self._group_ids_dev)))
-                for o in res.obs])
+        ring = {"rows": torch.stack([self._pack_window(r) for r in res])}
+        if res[0].grouped is not None:
+            ring["grouped"] = torch.stack(
+                [self._grouped_stats(r) for r in res])
         if self._buffering():
-            ring["obs"] = torch.stack(res.obs)
-        if res.steps_delta is not None:
-            ring["steps_delta"] = torch.stack(res.steps_delta)
+            ring["obs"] = torch.stack([self._gathered(r.obs) for r in res])
+        if res[0].steps_delta is not None:
+            ring["steps_delta"] = torch.stack(
+                [self._gathered(r.steps_delta) for r in res])
         if self._steer is not None:
             # the decision point's per-lane counters at the block's end
             # (the pool's own leaves: nothing writes them in place)
-            ring["lane_steps"] = self._pool.steps
-            ring["lane_leaps"] = self._pool.leaps
+            ring["lane_steps"] = self._gathered(
+                [p.steps for p in self._pools])
+            ring["lane_leaps"] = self._gathered(
+                [p.leaps for p in self._pools])
         pull, done = self._pull_async(ring)
         dispatch_wall = time.perf_counter() - t0
         # every queued ring (and snapshot) is live at once at depth K,
         # so peak_buffered must see their sum
         ring_bytes = sum(
             t.numel() * t.element_size()
-            for t in (*ring.values(), *(snapshot or ())))
-        obs_row_bytes = res.obs[0].numel() * res.obs[0].element_size()
+            for t in (*ring.values(),
+                      *(t for p in snapshot or () for t in p)))
+        obs_row_bytes = sum(o.numel() * o.element_size()
+                            for o in res[0].obs)
         self._pending.append(_InFlight(
             w0, n_win, pull, done, dispatch_wall, obs_row_bytes,
             ring_bytes, snapshot, snap_ready))
@@ -705,7 +814,8 @@ class SimulationEngine:
         self.n_host_syncs += 1
         pull_s = time.perf_counter() - t0
         wall = ent.dispatch_wall + pull_s
-        # the straggler watchdog observes this block wall (item 15)
+        # the block's one wall, as one sample at per-window scale
+        self.watchdog.observe_block(w0, n_win, wall)
         rows = pull["rows"].numpy()
         if cfg.guards and rows.shape[0] != n_win:
             self._raise_invariant(
@@ -830,7 +940,9 @@ class SimulationEngine:
         onto the lane (its own key and counters stay: trajectory
         splitting), and its rates row and scheduler cost; per-lane rates
         then rebind the kernel tables. Shared (R,) rates are the same
-        for every lane, so a move leaves them as they are."""
+        for every lane, so a move leaves them as they are. A sharded pool
+        is gathered on the lead device, edited there (a donor may sit on
+        another shard) and split back into fresh per-shard leaves."""
         pool = self._pool
         x, t, dead, no_leap = pool.x, pool.t, pool.dead, pool.no_leap
         stop = np.asarray(a.stop_lanes, bool)
@@ -846,11 +958,10 @@ class SimulationEngine:
             if self._rates_dev.ndim == 2:
                 self.rates = np.array(self.rates)
                 self.rates[moves[:, 0]] = self.rates[moves[:, 1]]
-                self._rates_dev = self._rates_dev.index_put(
-                    (dst,), self._rates_dev[src])
                 # engine.set_rates refuses once windows have run; the
                 # kernel tables are bound to the rates: rebind them
-                self._dispatch.set_rates(self._rates_dev)
+                self._install_rates(self._rates_dev.index_put(
+                    (dst,), self._rates_dev[src]))
             cost = self.scheduler._cost
             cost[moves[:, 0]] = cost[moves[:, 1]]
         if a.no_leap is not None:
@@ -901,7 +1012,7 @@ class SimulationEngine:
         The save waits for one copy, the saved pool's to the host
         (`_pull_pool`, booked in `ckpt_pulls`); a snapshot's copy does
         not wait for the blocks in flight behind it."""
-        p = None
+        p = None  # the per-shard pools to save
         ready = None
         win = self._window
         if self._pending:
@@ -917,7 +1028,7 @@ class SimulationEngine:
                 self.n_ckpt_flushes += 1
         if p is None:
             self.flush()
-            p = self._pool
+            p = self._pools
             win = self._window
             wb = self.cfg.window_block
             if wb > 1 and win % wb and win != len(self.grid):
@@ -963,30 +1074,38 @@ class SimulationEngine:
             **pool, window=win, cost=self.scheduler._cost,
             rates=np.asarray(self.rates, np.float32), **extra))
 
-    def _pull_pool(self, p: LaneState, ready) -> dict:
-        """The leaves of pool `p` as host arrays, for a save. On the card
-        they are copied into the pinned buffers of `_staging` on its
-        side stream, which waits for the `ready` event (the snapshot's,
-        recorded before the block that follows it; else one recorded
-        now), so a snapshot's copy runs beside the blocks in flight
-        instead of behind them on the one stream. `p` is held until the
-        copy is waited on, so the allocator cannot reuse its memory
-        under the side stream; the returned arrays view the buffers and
-        hold until the next save."""
+    def _pull_pool(self, pools: list, ready) -> dict:
+        """The whole pool's leaves as host arrays, for a save, from the
+        per-shard pools `pools` (gather-on-save: each shard's rows at its
+        offset). On the card each shard's leaves are copied into the
+        pinned buffers of `_staging` on its device's side stream, which
+        waits for that device's `ready` event (the snapshot's, recorded
+        before the block that follows it; else one recorded now), so a
+        snapshot's copy runs beside the blocks in flight instead of
+        behind them on the one stream. `pools` is held until the copies
+        are waited on, so the allocator cannot reuse its memory under a
+        side stream; the returned arrays view the buffers and hold until
+        the next save."""
         t0 = time.perf_counter()
         if self.device.type != "cuda":
-            host = {f: getattr(p, f).numpy() for f in LaneState._fields}
+            host = {f: torch.cat([getattr(p, f) for p in pools]).numpy()
+                    if len(pools) > 1 else getattr(pools[0], f).numpy()
+                    for f in LaneState._fields}
             self.ckpt_pulls.append((time.perf_counter() - t0, 0))
             return host
         if ready is None:
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-        host, side = self._staging()
-        side.wait_event(ready)
-        with torch.cuda.stream(side):
-            for f in LaneState._fields:
-                host[f].copy_(getattr(p, f), non_blocking=True)
-        side.synchronize()
+            ready = self._record_events()
+        host, sides = self._staging()
+        for d, side in sides.items():
+            side.wait_event(ready[d])
+        per = self.cfg.n_instances // len(pools)
+        for k, (p, d) in enumerate(zip(pools, self.devices)):
+            with torch.cuda.stream(sides[d]):
+                for f in LaneState._fields:
+                    host[f][k * per:(k + 1) * per].copy_(
+                        getattr(p, f), non_blocking=True)
+        for side in sides.values():
+            side.synchronize()
         running = sum(not e.done.query() for e in self._pending
                       if e.done is not None)
         self.ckpt_pulls.append((time.perf_counter() - t0, running))
@@ -1042,6 +1161,8 @@ class SimulationEngine:
             if dtypes[f] is np.uint32:
                 a = a.view(np.int32)
             leaves[f] = torch.tensor(a, device=self.device)
+        # reshard-on-restore: the file holds the whole pool, split here
+        # into this engine's shards whatever shard count saved it
         self._pool = LaneState(**leaves)
         self._window = saved_window
         self._dispatched = saved_window
@@ -1059,13 +1180,13 @@ class SimulationEngine:
                 # one row for all: keep (R,) on the device, the kernels'
                 # shared-rate route (the same bits as the per-lane one)
                 self.rates = np.broadcast_to(rates[0], rates.shape)
-                self._rates_dev = torch.as_tensor(rates[0].copy(),
-                                                  device=self.device)
+                rates_dev = torch.as_tensor(rates[0].copy(),
+                                            device=self.device)
             else:
                 self.rates = rates
-                self._rates_dev = torch.as_tensor(rates, device=self.device)
+                rates_dev = torch.as_tensor(rates, device=self.device)
             # the kernel tables are bound to the rates: rebind them
-            self._dispatch.set_rates(self._rates_dev)
+            self._install_rates(rates_dev)
         if "group_ids" in z:
             # the saved map reflects any steering reallocations
             self.set_groups(np.asarray(z["group_ids"], np.int32))

@@ -5,7 +5,9 @@ Samples at fixed sim-time grid points fold into (count, mean, M2)
 Welford accumulators per (grid point, observable) while the raw window
 is discarded. `merge` is Chan's parallel merge; `blocked_welford` /
 `merge_blocks` pin the merge tree to a fixed number of contiguous
-instance blocks so a record depends on the block count only.
+instance blocks so a record depends on the block count only, and
+`gather_blocks_over_axis` assembles a sharded pool's block partials
+into the same stack.
 
 Observables are integer-valued, so while their sums stay below 2^24 the
 window mean is exact and bitwise equal to the reference. M2 sums
@@ -60,27 +62,81 @@ def merge(a: Welford, b: Welford) -> Welford:
 
 def blocked_welford(obs, n_blocks: int) -> Welford:
     """Per-block partials: obs (I, ...) -> leaves (V, ...); block b
-    covers the contiguous instance rows [b*I/V, (b+1)*I/V)."""
-    xb = obs.reshape((n_blocks, obs.shape[0] // n_blocks) + obs.shape[1:])
-    parts = [update_batch(init_welford(x.shape[1:], obs.device), x)
-             for x in xb]
-    return Welford(*(torch.stack(leaf) for leaf in zip(*parts)))
+    covers the contiguous instance rows [b*I/V, (b+1)*I/V).
+
+    Each block is bitwise `update_batch(init_welford(...), x)`, the
+    reference's fold, in six ops instead of about forty: with no mask
+    its all-ones factor multiplies by exactly 1, its count is exactly
+    the block's rows (below 2^24) and the merge into the empty
+    accumulator adds exact zeros. The window path runs this once per
+    block and shard, so its launches bound how far ahead the host can
+    queue supersteps."""
+    rows = obs.shape[0] // n_blocks
+    xb = obs.reshape((n_blocks, rows) + obs.shape[1:])
+    if rows > 2 ** 24:  # a float32 count of ones would round
+        parts = [update_batch(init_welford(x.shape[1:], obs.device), x)
+                 for x in xb]
+        return Welford(*(torch.stack(leaf) for leaf in zip(*parts)))
+    n = torch.full(obs.shape[1:], float(rows), dtype=torch.float32,
+                   device=obs.device)
+    means, m2s = [], []
+    for x in xb:
+        # a fresh copy, as the masked product is: the sums then read
+        # the same aligned layout whatever the block's offset
+        xf = x.to(torch.float32, copy=True)
+        mean = xf.sum(dim=0) / n
+        means.append(mean)
+        m2s.append(((xf - mean) ** 2).sum(dim=0))
+    return Welford(n=n.expand((n_blocks,) + n.shape),
+                   mean=torch.stack(means), m2=torch.stack(m2s))
+
+
+def _sum_blocks(a):
+    """Sum over the leading (block) axis left to right, XLA:CPU's order
+    for the reference's merge. `torch.sum` pairs the terms otherwise
+    from V = 5 on, and M2's cancellation against N·MEAN² (means ~10^3,
+    variances ~10) turns that one rounding into a var thousands of ulp
+    off the reference's."""
+    out = a[0]
+    for v in range(1, a.shape[0]):
+        out = out + a[v]
+    return out
 
 
 def merge_blocks(acc: Welford) -> Welford:
     """Canonical merge of a (V, ...) stack of block accumulators in the
-    psum form: N = Σn, MEAN = Σ(n·mean)/N, M2 = Σ(m2 + n·mean²) − N·MEAN².
-    V == 1 returns the single block unchanged."""
+    psum form: N = Σn, MEAN = Σ(n·mean)/N, M2 = Σ(m2 + n·mean²) − N·MEAN²,
+    each Σ left to right over the blocks. V == 1 returns the single
+    block unchanged."""
     if acc.n.shape[0] == 1:
         return Welford(*(a[0] for a in acc))
-    n = acc.n.sum(dim=0)
-    s1 = (acc.n * acc.mean).sum(dim=0)
-    s2 = (acc.m2 + acc.n * acc.mean * acc.mean).sum(dim=0)
+    n = _sum_blocks(acc.n)
+    s1 = _sum_blocks(acc.n * acc.mean)
+    s2 = _sum_blocks(acc.m2 + acc.n * acc.mean * acc.mean)
     safe = torch.clamp_min(n, 1.0)
     mean = s1 / safe
     m2 = s2 - n * mean * mean
     return Welford(n=n, mean=torch.where(n > 0, mean, 0.0),
                    m2=torch.clamp_min(m2, 0.0))
+
+
+def gather_blocks_over_axis(parts: list, device) -> Welford:
+    """Assemble the full (V, ...) block stack of a sharded pool on
+    `device` (the lead shard's): shard k's (V/K, ...) partials, in shard
+    order, go into their rows of a zeroed (3, V, ...) buffer, so every
+    position holds one value and exact zeros, as under the reference's
+    psum, and the stack is bitwise the one an unsharded run computes.
+    Only O(V x n_obs) floats leave each shard. One part (no sharding)
+    is returned as it is."""
+    if len(parts) == 1:
+        return parts[0]
+    v_loc = parts[0].n.shape[0]
+    buf = torch.zeros((3, v_loc * len(parts)) + tuple(parts[0].n.shape[1:]),
+                      dtype=torch.float32, device=device)
+    for k, acc in enumerate(parts):
+        buf[:, k * v_loc:(k + 1) * v_loc] = torch.stack(
+            [acc.n, acc.mean, acc.m2]).to(device)
+    return Welford(n=buf[0], mean=buf[1], m2=buf[2])
 
 
 class Stats(NamedTuple):
@@ -101,22 +157,6 @@ def _group_welford(obs, group_ids, n_groups: int) -> Welford:
     parts = [update_batch(init_welford(obs.shape[1:], obs.device), obs,
                           mask=group_ids == g) for g in range(n_groups)]
     return Welford(*(torch.stack(leaf) for leaf in zip(*parts)))
-
-
-def grouped_stats(obs, group_ids, n_groups: int) -> Stats:
-    """Per-group statistics over the instance axis (sweep points):
-    obs (I, n_obs), group_ids (I,) -> Stats with (n_groups, n_obs)
-    leaves."""
-    return finalize(_group_welford(obs, group_ids, n_groups))
-
-
-def blocked_stats(obs, n_blocks: int = 1) -> Stats:
-    """Window statistics under the fixed `n_blocks` merge tree
-    (n_blocks == 1 is the single update_batch fold)."""
-    if n_blocks == 1:
-        return finalize(update_batch(
-            init_welford(obs.shape[1:], obs.device), obs))
-    return finalize(merge_blocks(blocked_welford(obs, n_blocks)))
 
 
 def blocked_grouped_welford(obs, group_ids, n_groups: int,

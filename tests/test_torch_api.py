@@ -179,8 +179,9 @@ def test_fused_window_truncation_raises_in_both():
 
 
 @pytest.mark.parametrize("changes,item", [
-    (dict(partitioning=T.Partitioning(n_shards=2)), "item 14"),
-    (dict(recovery=object()), "items 15-16"),
+    (dict(recovery=T.Recovery(workers=2)), "item 16"),
+    (dict(recovery=T.Recovery(workers=4),
+          partitioning=T.Partitioning(stat_blocks=4)), "item 16"),
 ])
 def test_unported_options_raise(changes, item):
     exp = T.Experiment(model=T_MODELS["lv2"](),

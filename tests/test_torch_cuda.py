@@ -4,8 +4,9 @@ twin, the sparse kernels against the dense ones, the tau kernel with an
 unreachable leap threshold against the exact kernel, the persistent
 lanes' ticket, the fused-kernel engine paths against the unfused
 ones, and each window kernel's path through supersteps (pinned rings,
-one host sync per block) and through a checkpoint and resume, bit for
-bit on one device.
+one host sync per block), through a checkpoint and resume, and through
+four shards on the one card (restores across shard counts, supervised
+drills), bit for bit on one device.
 
 Every test needs a CUDA device and nvcc and skips itself without them.
 The file imports neither JAX nor the reference package, so it runs
@@ -19,6 +20,7 @@ import torch
 
 import repro_torch.api as T
 from repro_torch.core import gillespie as tg
+from repro_torch.core import reduction as tred
 from repro_torch.core import tau_leap as tt
 from repro_torch.core.cwc.compile import cell_ring_model, compile_model
 from repro_torch.core.cwc.models import MODELS, pentamer_system
@@ -732,3 +734,99 @@ def test_cuda_steered_sketched_sweep_matches_cpu(cuda):
         assert a.mean.tobytes() == b.mean.tobytes()
         assert _ulp(a.var, b.var) <= VAR_ULP
         assert _ulp(a.ci90, b.ci90) <= CI90_ULP
+
+
+def _sharded(exp, n_shards, stat_blocks=8):
+    return exp.with_(partitioning=T.Partitioning(n_shards=n_shards,
+                                                 stat_blocks=stat_blocks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n_blocks", [(131072, 8), (262144, 2),
+                                           (1048576, 1), (1000, 4)])
+def test_cuda_blocked_welford_is_the_masked_fold_bitwise(cuda, rows,
+                                                         n_blocks):
+    """On the card the unmasked block fold gives the masked fold's
+    (update_batch into an empty accumulator) n, mean and m2 bit for
+    bit, at the main path's block shapes: its sums read fresh copies,
+    as the masked products are."""
+    rng = np.random.default_rng(rows + n_blocks)
+    obs = torch.as_tensor(rng.integers(0, 5000, (rows * n_blocks, 8)),
+                          device=cuda)
+    xb = obs.reshape(n_blocks, rows, 8)
+    parts = [tred.update_batch(
+        tred.init_welford((8,), cuda), x) for x in xb]
+    want = [torch.stack(leaf) for leaf in zip(*parts)]
+    got = tred.blocked_welford(obs, n_blocks)
+    for a, b in zip(want, got):
+        assert a.cpu().numpy().tobytes() \
+            == b.contiguous().cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,method,sparse,sweep", _CARD_CASES)
+def test_cuda_four_shards_on_one_card_match_unsharded(cuda, name, method,
+                                                      sparse, sweep):
+    """Four shards on cuda:0 (each its own kernel launch on the one
+    stream, each bound to its own rate slice), in supersteps of 2 at
+    depth 2, against the unsharded per-window run at the same
+    stat_blocks: records and pool bit for bit, launches = windows x 4,
+    one dispatch and one host sync per block."""
+    base = T.simulate(_sharded(_card_exp(name, method, sparse, sweep), 1),
+                      device=cuda)
+    call = _window_call(method, sparse)
+    before = call.launches
+    got = T.simulate(_sharded(_card_exp(name, method, sparse, sweep,
+                                        window_block=2, pipeline_depth=2),
+                              4), device=cuda)
+    assert call.launches == before + 6 * 4
+    assert got.telemetry.dispatches == got.telemetry.host_syncs == 3
+    assert [str(d) for d in got._engine.devices] == [str(cuda)] * 4
+    _records_equal(base, got, name)
+    _pool_equal(base._engine._pool, got._engine._pool, name)
+
+
+@pytest.mark.cuda
+def test_cuda_restore_across_shard_counts(cuda, tmp_path):
+    """A 4-shard run on the card saved at window 2 from a ring snapshot
+    while a block is in flight (each shard's leaves copied at its row
+    offset on the side stream) restores at 1 and at 2 shards and ends
+    with the 4-shard run's records and pool."""
+    exp = _card_exp("lv8", "exact", False, {"reproduce": [0.8, 1.2]},
+                    window_block=2, pipeline_depth=2)
+    clean = T.simulate(_sharded(exp, 4), device=cuda)
+    eng = T.build_engine(_sharded(exp, 4), device=cuda)
+    eng.enable_snapshots()
+    for _ in range(3):
+        eng.run_block()
+    assert len(eng._pending) == 2 and eng._window == 2
+    ck = str(tmp_path / "ck")
+    eng.checkpoint(ck)
+    assert eng.n_snapshot_saves == 1 and eng.n_ckpt_flushes == 0
+    eng.flush()
+    assert [r.mean.tobytes() for r in eng.stream.records()] \
+        == [r.mean.tobytes() for r in clean.records]
+    for k in (1, 2):
+        resumed = T.simulate(_sharded(exp, k), device=cuda,
+                             checkpoint_path=ck, resume=True)
+        _records_equal(clean, resumed, k)
+        _pool_equal(clean._engine._pool, resumed._engine._pool, k)
+
+
+@pytest.mark.cuda
+def test_cuda_supervised_drills_on_shards(cuda, tmp_path):
+    """Supervised 4-shard runs on cuda:0: a crash then a corrupt newest
+    file, and two device losses (4 -> 2 -> 1 shards), each end with the
+    clean run's records."""
+    exp = _sharded(_card_exp("lv8", "exact", False, None), 4)
+    clean = T.simulate(exp, device=cuda)
+    for label, plan in (("crash", {2: "crash", 4: "ckpt_corrupt"}),
+                        ("loss", {1: "device_lost", 4: "device_lost"})):
+        rec = T.Recovery(ckpt_dir=str(tmp_path / label), cadence=2,
+                         keep_last=2, inject=T.FailurePlan(schedule=plan))
+        got = T.simulate(exp.with_(recovery=rec), device=cuda)
+        _records_equal(clean, got, label)
+        rep = got.recovery_report()
+        assert rep["restarts"] == 2, label
+        if label == "loss":
+            assert rep["final_n_shards"] == 1

@@ -380,7 +380,7 @@ def test_steered_boundary_writes_no_pool_leaf_in_place():
     limit = len(eng.grid)
     eng.run_block()  # block 0, its boundary before min_windows
     eng._dispatch_block(limit)  # block 1 (windows 2-3), entry snapshot
-    held = eng._pending[0].snapshot
+    held, = eng._pending[0].snapshot  # the one shard's pool
     copies = [a.clone() for a in held]
     eng._collect_block()
     before = eng._pool

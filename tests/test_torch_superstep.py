@@ -279,7 +279,7 @@ def test_held_snapshot_is_unchanged_by_later_blocks():
     eng.enable_snapshots()
     entry = eng._pool
     eng.run_block()
-    snap = eng._pending[0].snapshot
+    snap, = eng._pending[0].snapshot  # the one shard's pool
     assert snap is entry  # held by reference, not copied
     before = [a.clone() for a in snap]
     eng.run_block()
