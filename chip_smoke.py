@@ -126,9 +126,28 @@ Phases (each prints its own lines; any failure exits non-zero):
              device losses (4 -> 2 -> 1 shards) and a NaN-poisoned pool
              caught by the engine's guard, each bitwise equal to 6a, with
              each recovery's teardown, rebuild and restore walls.
-7. report  — one JSON line of per-kernel numbers (launches: the main
-             paths' and phase 6's counted sharded runs'), the card line,
-             then the result line.
+7. farm    — the multi-process farm (`Recovery(workers=4)`), every
+             worker a process on cuda:0 (its own CUDA context). 7a: the
+             cell of 6a (lv8 x 2^20, exact, stat_blocks=8, a checkpoint
+             every window): records bitwise equal to 6a's unsharded run,
+             no restart, each worker's own launch counter at 8 (one per
+             window) and one dispatch and host sync per window; the
+             farm's wall against the single-process run's, each worker's
+             start-up (its lifetime less its engine's wall) and the
+             merge's ms. 7b: 5a's steered, sketched sweep (tolerance of
+             5a, bimodality, no reallocation) at 4 workers: records,
+             per-point stats, sketches and the steering report bitwise
+             equal to its single-process run, one host sync per block.
+             7c: SIGKILL, SIGSTOP, a corrupt newest checkpoint and a
+             retired worker's shard reassigned, each on 7a's cell,
+             bitwise equal to 6a, with each drill's detection, relaunch
+             and the faulted shard's end. 7d: `python -m
+             repro_torch.launch.simulate --workers 4` at 7a's size: its
+             CSV equals 7a's records as CsvSink writes them.
+8. report  — one JSON line of per-kernel numbers (launches: the main
+             paths', phase 6's counted sharded runs' and the workers' of
+             7a and 7b, each from its own counter), the card line, then
+             the result line.
 
 Exits non-zero, printing no result, without a CUDA device or without
 the `src/repro_torch` package beside this script. Imports nothing from
@@ -1469,9 +1488,9 @@ def recount_sketches(res) -> None:
                                  "the groups' lanes")
 
 
-def phase_steering(device, card) -> None:
+def phase_steering(device, card) -> float:
     """Phase 5a: sketches and steering on the dense main path as a
-    sweep, at full width."""
+    sweep, at full width. Returns the steering tolerance it chose."""
     import shutil
     import tempfile
 
@@ -1611,6 +1630,7 @@ def phase_steering(device, card) -> None:
         f"to the unsteered run's; dropped after its first decision and "
         f"restored into a new engine, the run ends with the uninterrupted "
         f"run's report, records and sketches bit for bit")
+    return tol
 
 
 def phase_steer_tau(device, tau_win_ms, card) -> None:
@@ -1848,11 +1868,11 @@ def shard_fold_split(exp, devs, device, card) -> None:
         + "; ".join(out) + f"; {card}")
 
 
-def phase_sharded(device, main_recs, card) -> dict:
+def phase_sharded(device, main_recs, card) -> tuple[dict, list]:
     """Phase 6: the sharded farm and supervised recovery at full width,
     each sharded run bitwise against its unsharded run at the same
     stat_blocks. Returns each engine kernel's launches in its counted
-    sharded runs."""
+    sharded runs, and 6a's records (unsharded, stat_blocks 8)."""
     import shutil
     import tempfile
 
@@ -2054,6 +2074,243 @@ def phase_sharded(device, main_recs, card) -> dict:
                             for a, b, c in sup.recovery_walls) + f"; {card}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return launches, ref
+
+
+# phase 7: the multi-process farm
+FARM_WORKERS = 4
+FARM_HEARTBEAT_S = 0.5
+
+
+def farm_recovery(path, schedule=None, **kw):
+    """Phase 7's Recovery: FARM_WORKERS worker processes, a checkpoint
+    every window, a heartbeat every FARM_HEARTBEAT_S / 2 s, no backoff;
+    `schedule` drills process faults."""
+    from repro_torch.api import FailurePlan, Recovery
+
+    kw.setdefault("cadence", 1)
+    return Recovery(ckpt_dir=path, workers=FARM_WORKERS,
+                    heartbeat_s=FARM_HEARTBEAT_S, keep_last=3,
+                    backoff_base_s=0.0,
+                    inject=(FailurePlan(schedule=schedule)
+                            if schedule else None), **kw)
+
+
+def timed_simulate(exp, device):
+    """(result, host wall s of the whole simulate() call, the engine's
+    build and, for a farm, its processes included)."""
+    import torch
+
+    from repro_torch.api import simulate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = simulate(exp, device=device)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def farm_launches(res, n_blocks, label, device) -> int:
+    """Check a farm run's workers: each launched the window kernel once
+    per window (its own counter, in its bundle; set to 0 by the fresh
+    process), and all together dispatched and synced once per block.
+    Returns the launches."""
+    import torch
+
+    rep = res.recovery_report()
+    want = MAIN_WINDOWS if torch.device(device).type == "cuda" else 0
+    got = [rep["kernel_launches"][k]["ssa_window"]
+           for k in range(FARM_WORKERS)]
+    if got != [want] * FARM_WORKERS:
+        raise AssertionError(f"{label}: the workers' kernel launches {got} "
+                             f"for {MAIN_WINDOWS} windows each")
+    t = res.telemetry
+    if not t.dispatches == t.host_syncs == FARM_WORKERS * n_blocks:
+        raise AssertionError(
+            f"{label}: {t.dispatches} dispatches, {t.host_syncs} host syncs "
+            f"over {FARM_WORKERS} workers for {n_blocks} blocks each")
+    return sum(got)
+
+
+def drill_times(rep) -> str:
+    """A drill's recovery from its event log: the fault's detection after
+    the injection, the relaunch after the detection, and the faulted
+    shard's end after its relaunch (host clock, s)."""
+    ev = rep["events"]
+    inj = next(e for e in ev if e["event"] == "fault_injected")
+    fault = next(e for e in ev if e["event"] == "fault")
+    relaunch = next(e for e in ev if e["event"] == "worker_launched"
+                    and e["shard"] == fault["shard"] and e["t"] >= fault["t"])
+    done = [e for e in ev if e["event"] == "worker_done"
+            and e["shard"] == fault["shard"]][-1]
+    return (f"detected {fault['t'] - inj['t']:.3f} s after the injection, "
+            f"relaunched {relaunch['t'] - fault['t']:.3f} s later, the shard "
+            f"done {done['t'] - relaunch['t']:.3f} s after that")
+
+
+def phase_farm(device, ref_recs, tol, card) -> int:
+    """Phase 7: the multi-process farm on the card, every worker on
+    `device`, each run bitwise against its single-process run at the
+    same stat_blocks. Returns the workers' window-kernel launches in
+    7a and 7b."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.api import (
+        CsvSink,
+        Ensemble,
+        Experiment,
+        Partitioning,
+        Schedule,
+        Steering,
+    )
+    from repro_torch.core.cwc.models import MODELS
+
+    main = Experiment(model=MODELS[MAIN_MODEL](),
+                      ensemble=Ensemble.make(replicas=MAIN_REPLICAS),
+                      schedule=Schedule(t_end=MAIN_T_END,
+                                        n_windows=MAIN_WINDOWS),
+                      n_lanes=1024, use_kernel=True,
+                      partitioning=Partitioning(n_shards=1,
+                                                stat_blocks=SHARD_BLOCKS))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_farm_")
+    launches = 0
+    try:
+        # 7a: phase 3's cell at FARM_WORKERS workers
+        single, single_s = timed_simulate(main, device)
+        if not records_equal(single.records, ref_recs):
+            raise AssertionError("7a: the single-process run differs from "
+                                 "6a's")
+        farm, farm_s = timed_simulate(
+            main.with_(recovery=farm_recovery(f"{tmp}/a")), device)
+        rep = farm.recovery_report()
+        if not records_equal(farm.records, ref_recs):
+            raise AssertionError("7a: the farm's records differ from 6a's")
+        if rep["restarts"] or rep["faults_by_kind"]:
+            raise AssertionError(f"7a: a fault-free farm restarted "
+                                 f"({rep['faults_by_kind']})")
+        if sorted({w["device"] for w in rep["per_worker"].values()}) \
+                != [str(device)]:
+            raise AssertionError(f"7a: workers ran on {rep['per_worker']}")
+        launches += farm_launches(farm, MAIN_WINDOWS, "7a", device)
+        startup = [rep["worker_lifetimes"][k] - rep["worker_walls"][k]
+                   for k in range(FARM_WORKERS)]
+        phases = [(round(rep["worker_startup"][k]["imports_s"], 3),
+                   round(rep["worker_startup"][k]["device_s"], 3))
+                  for k in range(FARM_WORKERS)]
+        log(f"[farm] 7a lv8 x {MAIN_REPLICAS} exact at {FARM_WORKERS} "
+            f"worker processes on {device}, stat_blocks={SHARD_BLOCKS}, a "
+            f"checkpoint every window: records bitwise equal to 6a's; "
+            f"{MAIN_WINDOWS} launches and {MAIN_WINDOWS} host syncs in "
+            f"every worker; wall {farm_s:.3f} s against {single_s:.3f} s "
+            f"in one process; each worker's lifetime "
+            f"{[round(rep['worker_lifetimes'][k], 3) for k in range(FARM_WORKERS)]}"
+            f" s, run wall (build, windows, saves) "
+            f"{[round(rep['worker_walls'][k], 3) for k in range(FARM_WORKERS)]}"
+            f" s, start-up {[round(x, 3) for x in startup]} s (of which "
+            f"the interpreter and imports, then the spec and the CUDA "
+            f"context: {phases} s); merge "
+            f"{rep['merge_s'] * 1e3:.3f} ms; {card}")
+
+        # 7b: phase 5a's steered, sketched sweep at FARM_WORKERS workers
+        sexp = steer_experiment(
+            steering=Steering(ci_rel_tol=tol, min_windows=4,
+                              bimodality=True),
+            partitioning=Partitioning(n_shards=1, stat_blocks=SHARD_BLOCKS))
+        s_single, s_single_s = timed_simulate(sexp, device)
+        s_farm, s_farm_s = timed_simulate(
+            sexp.with_(recovery=farm_recovery(f"{tmp}/b", cadence=4)),
+            device)
+        rep_b = s_farm.steering_report()
+        pa, pb = s_single.per_point(), s_farm.per_point()
+        if not (records_equal(s_farm.records, s_single.records)
+                and all(pa[f].tobytes() == pb[f].tobytes()
+                        for f in ("n", "mean", "var", "ci90"))
+                and sketches_equal(s_farm.sketches(), s_single.sketches())
+                and rep_b == s_single.steering_report()):
+            raise AssertionError("7b: the steered farm differs from its "
+                                 "single-process run")
+        if not rep_b["stopped_points"]:
+            raise AssertionError("7b: no point stopped")
+        if s_farm.recovery_report()["restarts"]:
+            raise AssertionError("7b: a fault-free farm restarted")
+        launches += farm_launches(s_farm, MAIN_WINDOWS // 4, "7b", device)
+        log(f"[farm] 7b the steered, sketched sweep of 5a ({len(STEER_VALUES)}"
+            f" points, PER_POINT, window_block 4, tolerance {tol:.6g}, "
+            f"bimodality) at {FARM_WORKERS} workers: records, per-point "
+            f"stats, sketches and the steering report bitwise equal to the "
+            f"single-process run's (stopped {rep_b['stopped_points']} at "
+            f"{rep_b['stop_windows']}); one host sync per block in every "
+            f"worker; wall {s_farm_s:.3f} s against {s_single_s:.3f} s; "
+            f"merge {s_farm.recovery_report()['merge_s'] * 1e3:.3f} ms; "
+            f"{card}")
+
+        # 7c: the process drills on 7a's cell
+        drills = (("kill", {2: "host_lost"}, {}),
+                  ("stop", {2: "worker_stall"}, {}),
+                  ("corrupt", {3: "ckpt_corrupt"}, {}),
+                  ("reassign", {2: "host_lost"},
+                   {"max_worker_restarts": 0}))
+        for label, plan, kw in drills:
+            res, wall = timed_simulate(main.with_(recovery=farm_recovery(
+                f"{tmp}/{label}", plan, **kw)), device)
+            rep = res.recovery_report()
+            if not records_equal(res.records, ref_recs):
+                raise AssertionError(f"7c {label}: records differ from 6a's")
+            inj = [e for e in rep["events"] if e["event"] == "fault_injected"]
+            if not inj or rep["restarts"] < 1:
+                raise AssertionError(f"7c {label}: the fault did not land "
+                                     f"({rep['events']})")
+            if label == "stop" and not rep["faults_by_kind"].get(
+                    "worker_stall"):
+                raise AssertionError("7c stop: no stall was seen")
+            if label == "corrupt" and not any(
+                    e["event"] == "corrupt_checkpoint_skipped"
+                    for e in rep["worker_reports"][inj[0]["shard"]]["events"]):
+                raise AssertionError("7c corrupt: no corrupt file skipped")
+            if label == "reassign" and rep["reassignments"] < 1:
+                raise AssertionError("7c reassign: no shard moved")
+            log(f"[farm] 7c drill {label} {plan}: {rep['restarts']} "
+                f"restart(s), faults {rep['faults_by_kind']}, "
+                f"{rep['reassignments']} reassignment(s), records bitwise "
+                f"equal to 6a's; wall {wall:.3f} s ({wall - farm_s:+.3f} s "
+                f"against 7a); {drill_times(rep)}; {card}")
+
+        # 7d: the command line at 7a's size
+        csv = f"{tmp}/cli.csv"
+        cmd = [sys.executable, "-m", "repro_torch.launch.simulate",
+               "--model", MAIN_MODEL, "--replicas", str(MAIN_REPLICAS),
+               "--t-end", str(MAIN_T_END), "--windows", str(MAIN_WINDOWS),
+               "--lanes", "1024", "--kernel", "--devices", "1",
+               "--stat-blocks", str(SHARD_BLOCKS), "--workers",
+               str(FARM_WORKERS), "--recover-dir", f"{tmp}/cli",
+               "--device", str(device), "--out", csv]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True,
+                              text=True, timeout=600, env=dict(
+                                  os.environ, PYTHONPATH=str(SRC)))
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"7d: the command line exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        want = f"{tmp}/want.csv"
+        sink = CsvSink(want, single.obs_names)
+        for r in ref_recs:
+            sink(r)
+        sink.close()
+        with open(csv) as a, open(want) as b:
+            if a.read() != b.read():
+                raise AssertionError("7d: the command line's CSV differs "
+                                     "from 7a's records")
+        log(f"[farm] 7d python -m repro_torch.launch.simulate --workers "
+            f"{FARM_WORKERS} at 7a's size: CSV equal to 7a's records as "
+            f"CsvSink writes them; {cli_s:.3f} s; its summary: "
+            f"{proc.stdout.splitlines()[0]}; {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return launches
 
 
@@ -2086,10 +2343,11 @@ def main() -> int:
     tau_dense = phase_tau(device, False, dense)
     tau_sparse = phase_tau(device, True, sparse)
     phase_supersteps(device, dense["records"], tau_sparse["records"], card)
-    phase_steering(device, card)
+    tol = phase_steering(device, card)
     phase_steer_tau(device, tau_dense["win_ms"], card)
     phase_sketch_sparse(device, sparse["records"], sparse["win_ms"], card)
-    shard_launches = phase_sharded(device, dense["records"], card)
+    shard_launches, shard_ref = phase_sharded(device, dense["records"], card)
+    shard_launches["ssa_window"] += phase_farm(device, shard_ref, tol, card)
     entries = [
         ("ssa_window", "ssa_window.cu", "src/repro/kernels/ssa_step.py:64",
          dense),

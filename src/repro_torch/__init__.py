@@ -22,11 +22,14 @@ Layout (each module names the reference module it ports):
   core/engine.py      SimConfig and SimulationEngine
   ckpt/               the single-file checkpoint store
   stats/, steer/      sketches and the between-block steering policy
-  runtime/            typed faults, the straggler watchdog and the
-                      supervised recovery loop
+  runtime/            typed faults, the straggler watchdog, the
+                      supervised recovery loop and the multi-process
+                      farm (coordinator and worker processes)
   kernels/            the hand-written CUDA kernels (exact and tau-leap
                       windows, Match), their plain twins, the chunk
                       loops and the nvcc build
   api/                Experiment spec, simulate(), SimulationResult
+  launch/simulate.py  the command line (python -m
+                      repro_torch.launch.simulate)
   interop.py          state exchange with the reference's arrays
 """

@@ -8,7 +8,9 @@ the returned `SimulationResult`, so checkpoint/resume and partial runs
 share one code path. Runs on the CUDA device unless the caller passes
 `device="cpu"`; with no device and no GPU it raises. A multi-shard
 `Partitioning` takes one device for every shard, or one per shard; a
-`recovery` run is handed to `runtime.supervisor.RunSupervisor`.
+`recovery` run is handed to `runtime.supervisor.RunSupervisor`, or,
+with `Recovery(workers > 1)`, to the multi-process farm
+(`runtime.coordinator.FarmCoordinator`).
 """
 from __future__ import annotations
 
@@ -16,12 +18,18 @@ import os
 from typing import Optional
 
 from repro_torch.api.result import SimulationResult
-from repro_torch.api.spec import Experiment, ExperimentError, Reduction
+from repro_torch.api.spec import (
+    Experiment,
+    ExperimentError,
+    Partitioning,
+    Reduction,
+)
 from repro_torch.core.engine import (
     SimConfig,
     SimulationEngine,
     resolve_observables,
 )
+from repro_torch.core.stream import lane_keys
 from repro_torch.core.sweep import sweep_rates
 
 
@@ -31,24 +39,37 @@ def observable_names(model) -> list[str]:
     return resolve_observables(model)[1]
 
 
-def build_engine(experiment: Experiment, device=None) -> SimulationEngine:
+def build_engine(experiment: Experiment, device=None,
+                 shard=None) -> SimulationEngine:
     """Compile an Experiment down to a ready-to-run engine (no windows
     are run). Exposed for benchmarks; prefer simulate().
 
     device: one device (it holds every shard), a sequence of n_shards
     devices (shard k on entry k; entries may repeat), or None: the CUDA
     device, and under a multi-shard Partitioning shard k on cuda:k,
-    refused when fewer cards are visible."""
+    refused when fewer cards are visible.
+
+    shard=(lo, hi, stat_blocks) is the farm worker's seam
+    (runtime/worker.py): the engine covers only the instance rows
+    [lo, hi) of the GLOBAL ensemble, with the same seed, the rates and
+    group ids sliced to the range and the lanes' key rows taken from
+    the GLOBAL key table, so each lane's counter-based stream is the
+    one the single-process run gives it. stat_blocks is the worker's
+    share of the global Welford blocks (contiguous, so the worker's
+    blocks ARE global blocks)."""
     experiment.validate()
     ens = experiment.ensemble
     sched = experiment.schedule
     part = experiment.partitioning
+    lo, hi = (0, ens.n_instances) if shard is None else shard[:2]
+    if shard is not None:
+        part = Partitioning(n_shards=1, stat_blocks=shard[2])
     try:
         cfg = SimConfig(
-            n_instances=ens.n_instances,
+            n_instances=hi - lo,
             t_end=float(sched.t_end),
             n_windows=sched.n_windows,
-            n_lanes=min(experiment.n_lanes, ens.n_instances),
+            n_lanes=min(experiment.n_lanes, hi - lo),
             schema=sched.schema.value,
             policy=sched.policy.value,
             seed=experiment.seed,
@@ -68,6 +89,11 @@ def build_engine(experiment: Experiment, device=None) -> SimulationEngine:
         group_ids = (ens.group_ids()
                      if experiment.reduction is Reduction.PER_POINT
                      else None)
+        if group_ids is not None and shard is not None:
+            # points are contiguous runs of replicas, so the slice holds
+            # whole points; rebased to 0, the worker's grouped rows are
+            # its local points (global index = local + base)
+            group_ids = group_ids[lo:hi] - group_ids[lo]
         engine = SimulationEngine(
             experiment.model, cfg, group_ids=group_ids,
             record_trajectories=experiment.record_trajectories,
@@ -77,6 +103,20 @@ def build_engine(experiment: Experiment, device=None) -> SimulationEngine:
         # engine-side config/table errors and device placement surface
         # in the API's vocabulary
         raise ExperimentError(str(e)) from e
+    if shard is not None:
+        # the rows of the global table `init_lanes` builds for the whole
+        # ensemble
+        keys = lane_keys(experiment.seed, ens.n_instances,
+                         device=engine.device)[lo:hi].clone()
+        engine._pool = engine._pool._replace(key=keys)
+        if group_ids is not None:
+            # this shard's place in the GLOBAL (V, G) stats layout: shards
+            # are contiguous and blocks uniform, so the worker's blocks
+            # and points ARE global ones at an offset
+            bs = (hi - lo) // shard[2]
+            engine.set_global_stats_layout(
+                v_total=ens.n_instances // bs, v0=lo // bs,
+                g_total=ens.n_points, g0=lo // ens.replicas)
     if ens.sweep is not None:
         try:
             rates = sweep_rates(engine.system, ens.sweep)
@@ -85,7 +125,7 @@ def build_engine(experiment: Experiment, device=None) -> SimulationEngine:
                 f"sweep names a rate the model does not define: {e}; "
                 f"reactions are {list(engine.system.reaction_names)}"
             ) from e
-        engine.set_rates(rates)
+        engine.set_rates(rates[lo:hi])
     return engine
 
 
@@ -111,7 +151,10 @@ def simulate(experiment: Experiment, *, device=None,
     `runtime.supervisor.RunSupervisor` (cadenced checkpoints, restart on
     a fault, elastic shard loss), which owns checkpointing and drives
     the run to its end, so checkpoint_path, resume and max_windows are
-    refused alongside it.
+    refused alongside it. With `Recovery(workers=K > 1)` it is handed to
+    `runtime.coordinator.FarmCoordinator`: K worker processes, each a
+    RunSupervisor over a contiguous shard, merged bit for bit; `device`
+    then places the workers (None: worker k on cuda:(k mod cards)).
     """
     if experiment.recovery is not None:
         if checkpoint_path or resume or max_windows is not None:
@@ -120,7 +163,16 @@ def simulate(experiment: Experiment, *, device=None,
                 "run to completion; drop checkpoint_path/resume/"
                 "max_windows (set Recovery.ckpt_dir and cadence "
                 "instead)")
-        experiment.validate()  # refuses Recovery(workers > 1), item 16
+        # the spec's own checks first: a bad Recovery (or a farm the
+        # bitwise merge cannot serve) is an ExperimentError
+        experiment.validate()
+        if experiment.recovery.workers > 1:
+            # the multi-process farm: a coordinator shards the ensemble
+            # over worker processes and merges their results bitwise
+            from repro_torch.runtime.coordinator import FarmCoordinator
+
+            return FarmCoordinator(experiment, experiment.recovery,
+                                   device=device).run()
         from repro_torch.runtime.supervisor import RunSupervisor
 
         return RunSupervisor(experiment, experiment.recovery,

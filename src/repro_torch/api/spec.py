@@ -3,11 +3,6 @@
 `Experiment`, `Ensemble` and `Schedule` keep the reference's field
 names and defaults, so one spec literal builds in both packages. A
 spec is pure data; `simulate()` compiles and runs it.
-
-The one option whose machinery is not ported yet, the multi-process
-farm (`Recovery(workers > 1)`), is refused by `validate()` with an
-`ExperimentError` that names its ROADMAP queue-1 item; nothing is
-silently ignored.
 """
 from __future__ import annotations
 
@@ -18,6 +13,7 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 
+from repro_torch.core.cwc.compile import CompiledModel
 from repro_torch.core.cwc.rules import CWCModel
 from repro_torch.core.reactions import ReactionSystem
 from repro_torch.core.sweep import SweepSpec
@@ -279,11 +275,11 @@ class Experiment:
     stat_blocks.
     recovery: a Recovery — supervised runs (cadenced checkpoints,
     restart on a fault, elastic shard loss, fault drills;
-    `SimulationResult.recovery_report`). Recovery(workers > 1), the
-    multi-process farm, is not ported yet and is refused by validate().
+    `SimulationResult.recovery_report`); Recovery(workers > 1) runs the
+    multi-process farm (`runtime.coordinator`).
     """
 
-    model: Union[CWCModel, ReactionSystem]
+    model: Union[CWCModel, ReactionSystem, CompiledModel]
     ensemble: Ensemble
     schedule: Schedule
     reduction: Reduction = Reduction.ENSEMBLE
@@ -310,9 +306,11 @@ class Experiment:
         object.__setattr__(self, "method", Method.coerce(self.method))
 
     def validate(self) -> None:
-        if not isinstance(self.model, (CWCModel, ReactionSystem)):
+        if not isinstance(self.model,
+                          (CWCModel, ReactionSystem, CompiledModel)):
             raise ExperimentError(
-                "Experiment.model must be a CWCModel or ReactionSystem, "
+                "Experiment.model must be a CWCModel, ReactionSystem or "
+                "CompiledModel, "
                 f"got {type(self.model).__name__}")
         if not isinstance(self.ensemble, Ensemble):
             raise ExperimentError(
@@ -383,10 +381,11 @@ class Experiment:
                 self.recovery.validate()
             except ValueError as e:
                 raise ExperimentError(str(e)) from e
+            if self.recovery.workers > 1:
+                self._validate_farm()
         for s in self.sinks:
             if not callable(s):
                 raise ExperimentError(f"sink {s!r} is not callable")
-        self._refuse_unported()
 
     def _validate_steering(self) -> None:
         """The sketch and steering fields, checked as the reference
@@ -416,19 +415,51 @@ class Experiment:
         except ValueError as e:
             raise ExperimentError(str(e)) from e
 
-    def _refuse_unported(self) -> None:
-        """Options whose machinery the port does not have yet, each
-        with its ROADMAP queue-1 item."""
-        unported = [
-            (self.recovery is not None and self.recovery.workers > 1,
-             "recovery with workers > 1",
-             "item 16, the multi-process farm"),
-        ]
-        for hit, what, item in unported:
-            if hit:
+    def _validate_farm(self) -> None:
+        """The multi-process farm's cross-checks (Recovery.workers > 1),
+        the reference's, message for message. A bitwise merge needs
+        clean shard boundaries: whole stat blocks (and, per point, whole
+        sweep points) per worker."""
+        w = self.recovery.workers
+        if self.partitioning is not None and self.partitioning.n_shards > 1:
+            raise ExperimentError(
+                "Recovery.workers shards the ensemble at the PROCESS "
+                "level; in-process device sharding inside each worker "
+                f"(Partitioning.n_shards={self.partitioning.n_shards}) "
+                "is not supported — use Partitioning(n_shards=1, "
+                "stat_blocks=...) to pin the statistics partition, or "
+                "drop workers")
+        n_inst = self.ensemble.n_instances
+        blocks = (self.partitioning.blocks
+                  if self.partitioning is not None else w)
+        if blocks % w or n_inst % blocks:
+            raise ExperimentError(
+                f"Recovery.workers={w} needs each worker to own whole "
+                f"stat blocks: stat_blocks ({blocks}) must be a "
+                f"multiple of workers and divide n_instances "
+                f"({n_inst})")
+        if self.reduction is Reduction.PER_POINT \
+                and self.ensemble.n_points % w:
+            raise ExperimentError(
+                f"Recovery.workers={w} with Reduction.PER_POINT needs "
+                "each worker to own whole sweep points: n_points "
+                f"({self.ensemble.n_points}) must divide evenly over "
+                "workers")
+        if self.steering is not None and self.steering.enabled:
+            if self.steering.reallocate:
                 raise ExperimentError(
-                    f"Experiment {what} is not ported to repro_torch yet "
-                    f"(ROADMAP queue 1, {item})")
+                    "Steering.reallocate moves lanes ACROSS sweep "
+                    "points, which cannot be replayed inside "
+                    "process-local shards; drop reallocate or run "
+                    "with workers=1")
+            if (self.steering.ci_rel_tol > 0 or self.steering.bimodality) \
+                    and self.reduction is not Reduction.PER_POINT:
+                raise ExperimentError(
+                    "steering convergence decisions under "
+                    "Recovery.workers > 1 need per-point statistics "
+                    "(each worker owns whole points and reproduces "
+                    "the global decision locally); use "
+                    "Reduction.PER_POINT or workers=1")
 
     def with_(self, **changes) -> "Experiment":
         return dataclasses.replace(self, **changes)

@@ -11,9 +11,23 @@ matrix — fully vectorised (DESIGN.md §2/§6).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 from repro_torch.core.cwc.rules import CWCModel, Rule, TransportRule
 from repro_torch.core.cwc.terms import TOP, comp, term
 from repro_torch.core.reactions import ReactionSystem, make_system
+
+
+class CompiledModel(NamedTuple):
+    """A model resolved to what the engine reads: its ReactionSystem and
+    observable columns (names, species indices of each). A CWCModel's
+    init_fn may be a closure, which the standard library's pickle
+    refuses; this form pickles, so the multi-process farm ships it to
+    its workers. `core.engine.resolve_observables` takes it as it is."""
+
+    system: ReactionSystem
+    obs_names: tuple
+    obs_idx: tuple
 
 
 def compile_model(model: CWCModel) -> tuple[ReactionSystem, dict]:

@@ -75,7 +75,7 @@ import torch
 
 from repro_torch.ckpt import store as ckpt_store
 from repro_torch.core import reduction
-from repro_torch.core.cwc.compile import compile_model
+from repro_torch.core.cwc.compile import CompiledModel, compile_model
 from repro_torch.core.cwc.rules import CWCModel
 from repro_torch.core.device import resolve_devices, to_device
 from repro_torch.core.dispatch import (
@@ -249,6 +249,9 @@ class _InFlight(NamedTuple):
 def resolve_observables(model):
     """(system, obs_names, obs_idx) for a model — the single source of
     the observable-column derivation (engine and api share it)."""
+    if isinstance(model, CompiledModel):
+        return (model.system, list(model.obs_names),
+                [list(i) for i in model.obs_idx])
     if isinstance(model, CWCModel):
         system, meta = compile_model(model)
         names = list(meta["observables"]) or list(meta["species"])
@@ -338,6 +341,16 @@ class SimulationEngine:
         self._gids_shards: Optional[list] = None
         self._n_groups = 0
         self._grouped: list[reduction.Stats] = []
+        # the farm worker's seam (enable_block_partials): each window's
+        # Welford block partials (V, n_obs) and grouped partials (V, G,
+        # n_obs), pulled in `_pack_window`'s row, so a coordinator can
+        # fold every worker's stacks in global block order
+        self._export_partials = False
+        self._block_partials: list[reduction.Welford] = []
+        self._grouped_partials: list[reduction.Welford] = []
+        # (v_total, v0, g_total, g0): where this shard's blocks and groups
+        # sit in the global (V, G) layout (set_global_stats_layout)
+        self._stats_layout: Optional[tuple] = None
         # sketches: the bin geometry resolved from the model's t=0
         # observables (float64, as the reference resolves it), its
         # operands per device, and the pulled WindowSketch per window
@@ -476,6 +489,27 @@ class SimulationEngine:
              for k, d in enumerate(self.devices)])
         self._n_groups = int(ids.max()) + 1
 
+    def set_global_stats_layout(self, v_total: int, v0: int,
+                                g_total: int, g0: int) -> None:
+        """The farm worker's seam: declare where this shard's stat blocks
+        and groups sit in the GLOBAL (V, G) layout, so grouped stats are
+        folded through the zero-extended global stack (`_grouped_stats`)
+        and steering sees the single-process run's bits. Must run before
+        the first window."""
+        if self._window or self._dispatched:
+            raise RuntimeError("the stats layout must be set before running")
+        self._stats_layout = (int(v_total), int(v0), int(g_total), int(g0))
+
+    def enable_block_partials(self) -> None:
+        """Opt in to keeping each window's Welford block partials (n,
+        mean, m2 per stat block, and per (block, group) with groups). A
+        farm worker's records cover only its own rows, so the coordinator
+        folds the partial stacks of all workers, in global block order,
+        by the same merge_blocks + finalize, which gives the
+        single-process records bit for bit. They ride the window's one
+        pull (`_pack_window`) and the checkpoint (bp_* and gpp_* keys)."""
+        self._export_partials = True
+
     # ------------------------------------------------------------------
     def _permutations(self) -> list:
         """The concatenated, padded scheduler groups as one shard-local
@@ -512,10 +546,11 @@ class SimulationEngine:
         device: the record's moments (mean, var, ci90, n) folded from the
         window's block stack, the pool's step/leap totals, the truncation
         flag and, with a sketch, its int32 histogram and rare counts
-        (below 2^31, so widened exactly). The per-window and the
-        superstep paths both pull this row, and every dispatch hands the
-        same stack, so their records come from the same ops on the same
-        values."""
+        (below 2^31, so widened exactly) and, with block partials on, the
+        window's block and grouped partial stacks (float32, widened
+        exactly). The per-window and the superstep paths both pull this
+        row, and every dispatch hands the same stack, so their records
+        come from the same ops on the same values."""
         stats = reduction.finalize(reduction.merge_blocks(res.stack))
         truncated = res.truncated
         if truncated is None:  # the unfused paths have no event budget
@@ -524,6 +559,10 @@ class SimulationEngine:
                  res.leaps_sum, truncated]
         if res.sketch is not None:
             parts.extend(p for p in res.sketch if p is not None)
+        if self._export_partials:
+            parts.extend(res.stack)
+            if res.grouped is not None:
+                parts.extend(res.grouped)
         return torch.cat([p.reshape(-1).to(torch.float64) for p in parts])
 
     def _gathered(self, parts) -> torch.Tensor:
@@ -534,9 +573,24 @@ class SimulationEngine:
         return torch.cat([p.to(self.device) for p in parts])
 
     def _grouped_stats(self, res: WindowResult) -> torch.Tensor:
-        """The window's per-group Stats, stacked (4, G, n_obs)."""
-        return torch.stack(list(reduction.finalize(
-            reduction.merge_blocks(res.grouped))))
+        """The window's per-group Stats, stacked (4, G, n_obs). A farm
+        worker (set_global_stats_layout) embeds its (V_loc, G_loc) stack
+        in a zeroed global (V, G) stack, folds that, and keeps its own
+        groups' rows: the single-process fold sums every block, memberless
+        ones as exact zero terms, and with V_loc = 1 the local stack
+        alone would take merge_blocks' V == 1 shortcut instead."""
+        acc = res.grouped
+        if self._stats_layout is None:
+            return torch.stack(list(reduction.finalize(
+                reduction.merge_blocks(acc))))
+        v_tot, v0, g_tot, g0 = self._stats_layout
+        v_loc, g_loc = acc.n.shape[:2]
+        full = torch.zeros((3, v_tot, g_tot) + tuple(acc.n.shape[2:]),
+                           dtype=acc.n.dtype, device=acc.n.device)
+        full[:, v0:v0 + v_loc, g0:g0 + g_loc] = torch.stack(list(acc))
+        st = reduction.finalize(reduction.merge_blocks(
+            reduction.Welford(*full)))
+        return torch.stack([leaf[g0:g0 + g_loc] for leaf in st])
 
     def _emit_row(self, w: int, row: np.ndarray) -> StatsRecord:
         """Check one pulled `_pack_window` row (truncation, guards),
@@ -557,15 +611,27 @@ class SimulationEngine:
         self.window_steps.append((steps_cum - self._cum_steps) & 0xFFFFFFFF)
         self.window_leaps.append((leaps_cum - self._cum_leaps) & 0xFFFFFFFF)
         self._cum_steps, self._cum_leaps = steps_cum, leaps_cum
+        g = self._n_groups or 1
+        off = 4 * n_obs + 3
         if self._sketch is not None:
             sk = self._sketch
-            counts = row[4 * n_obs + 3:].astype(np.int32)
-            g = counts.shape[0] // (n_obs * (sk.n_bins + sk.n_thr))
             n_hist = g * n_obs * sk.n_bins
+            n_rare = g * n_obs * sk.n_thr
+            counts = row[off:off + n_hist + n_rare].astype(np.int32)
+            off += n_hist + n_rare
             self._sketches.append(WindowSketch(
                 hist=counts[:n_hist].reshape(g, n_obs, sk.n_bins),
                 rare=(counts[n_hist:].reshape(g, n_obs, sk.n_thr)
                       if sk.n_thr else None)))
+        if self._export_partials:
+            v = self.cfg.stat_blocks
+            n_bp = 3 * v * n_obs
+            self._block_partials.append(reduction.Welford(
+                *row[off:off + n_bp].astype(np.float32).reshape(3, v, n_obs)))
+            if self._group_ids is not None:
+                self._grouped_partials.append(reduction.Welford(
+                    *row[off + n_bp:].astype(np.float32).reshape(
+                        3, v, g, n_obs)))
         return StatsRecord(t=float(self.grid[w]), window=w, mean=mean,
                            var=var, ci90=ci90, n=float(n.max()))
 
@@ -842,7 +908,6 @@ class SimulationEngine:
                 self.scheduler.record_costs(
                     np.arange(cfg.n_instances),
                     pull["steps_delta"][w].numpy())
-            # block partials for the multi-process farm go here (item 16)
             self.stream.emit(rec)
             self._window += 1
         if "lane_steps" in pull:
@@ -1058,7 +1123,14 @@ class SimulationEngine:
             if self._sketches[0].rare is not None:
                 extra["sketch_rare"] = np.stack(
                     [s.rare for s in self._sketches[:win]])
-        # bp_*/gpp_* keys (item 16) are written here once it is ported
+        if self._block_partials[:win]:
+            for i, name in enumerate(("n", "mean", "m2")):
+                extra[f"bp_{name}"] = np.stack(
+                    [b[i] for b in self._block_partials[:win]])
+        if self._grouped_partials[:win]:
+            for i, name in enumerate(("n", "mean", "m2")):
+                extra[f"gpp_{name}"] = np.stack(
+                    [b[i] for b in self._grouped_partials[:win]])
         if self._group_ids is not None:
             # steering's reallocation rewrites the lane->point map, so it
             # is run state, not only construction input
@@ -1113,21 +1185,11 @@ class SimulationEngine:
 
     def restore(self, path: str) -> None:
         """Load a checkpoint written by either package. Refuses a file
-        cut mid-block for this engine's window_block, and one that
-        carries state of a feature not ported yet, before touching any
+        cut mid-block for this engine's window_block before touching any
         state; rebinds the kernel tables to the restored rates."""
-        from repro_torch.api.spec import ExperimentError
-
         z = ckpt_store.verify(
             path, required=("x", "t", "key", "steps", "dead",
                             "window", "cost"))
-        for prefix in ("bp_", "gpp_"):
-            keys = sorted(k for k in z if k.startswith(prefix))
-            if keys:
-                raise ExperimentError(
-                    f"checkpoint {path!r} carries {keys}, state of a "
-                    f"feature not ported to repro_torch yet (ROADMAP "
-                    "queue 1, item 16, the multi-process farm)")
         saved_window = int(z["window"])
         wb = self.cfg.window_block
         if wb > 1 and saved_window % wb and saved_window != len(self.grid):
@@ -1219,6 +1281,12 @@ class SimulationEngine:
         self._sketches = ([
             WindowSketch(hist=sh[w], rare=(sr[w] if sr is not None else None))
             for w in range(len(sh))] if sh is not None else [])
+        # a farm worker's partial stacks (either package's bp_*/gpp_*)
+        self._block_partials, self._grouped_partials = (
+            [reduction.Welford(*(z[f"{p}_{f}"][w]
+                                 for f in ("n", "mean", "m2")))
+             for w in range(len(z[f"{p}_n"]))] if f"{p}_n" in z else []
+            for p in ("bp", "gpp"))
 
     @property
     def peak_buffered_bytes(self) -> int:

@@ -1,7 +1,7 @@
 """Runtime: typed faults and their injection, the straggler watchdog,
-and the supervised recovery loop (RunSupervisor); port of
-`repro/runtime` (the multi-process farm, its coordinator and workers,
-is queue 1 item 16)."""
+the supervised recovery loop (RunSupervisor) and the multi-process farm
+(`coordinator.FarmCoordinator` over `worker` processes); port of
+`repro/runtime`."""
 from repro_torch.runtime.fault import (  # noqa: F401
     FAULT_KINDS,
     DeviceLost,

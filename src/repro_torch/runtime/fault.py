@@ -58,8 +58,8 @@ class EngineStall(RecoverableError):
 
 
 class HostLost(RecoverableError):
-    """A worker process of the multi-process farm died (queue 1 item
-    16): its coordinator restarts it from its namespaced checkpoints."""
+    """A worker process of the multi-process farm died: its coordinator
+    restarts it from its namespaced checkpoints."""
 
     kind = "host_lost"
 
@@ -69,8 +69,8 @@ class HostLost(RecoverableError):
 
 
 class WorkerStall(RecoverableError):
-    """A worker process is alive but its heartbeat went stale (queue 1
-    item 16): killed and restarted like HostLost, tagged apart."""
+    """A farm worker process is alive but its heartbeat went stale:
+    killed and restarted like HostLost, tagged apart."""
 
     kind = "worker_stall"
 

@@ -6,8 +6,8 @@
   `Telemetry.straggler_windows`; `Recovery(redispatch_stragglers=True)`
   escalates them into a supervised re-dispatch.
 * `FrontierWatchdog` — per-worker progress monitor for the
-  multi-process farm (queue 1 item 16): flags a worker whose collected
-  window frontier trails the median of the others.
+  multi-process farm (`runtime.coordinator`): flags a worker whose
+  collected window frontier trails the median of the others.
 """
 from __future__ import annotations
 

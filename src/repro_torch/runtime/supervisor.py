@@ -65,12 +65,20 @@ class Recovery:
     redispatch_stragglers: escalate watchdog flags into a supervised
     re-dispatch of the offending block (one retry per window).
     inject: a FailurePlan drill; None in production.
-    workers, heartbeat_s, max_worker_restarts, namespace: the
-    multi-process farm's (queue 1 item 16); workers > 1 is refused by
-    the port's Experiment.validate until it is ported. They stay so
-    that the reference's spec literal builds unchanged; until then only
-    `validate` reads heartbeat_s and max_worker_restarts. namespace also
-    prefixes this supervisor's checkpoint names.
+
+    The multi-process farm (workers > 1): `simulate` hands the run to
+    `runtime.coordinator.FarmCoordinator`, which shards the ensemble
+    over `workers` worker processes, each a RunSupervisor over its
+    shard with namespaced checkpoints in the shared ckpt_dir.
+    workers: worker processes (1: this in-process supervisor).
+    heartbeat_s: a worker writes its heartbeat every heartbeat_s / 2; a
+    heartbeat stale for 3 x heartbeat_s is a stalled worker (killed and
+    restarted), a dead process is a lost host.
+    max_worker_restarts: restarts of one worker slot; past it the slot
+    is retired and its shard reassigned to a survivor.
+    namespace: this supervisor's checkpoint namespace in ckpt_dir ("":
+    none); the farm's workers set it, and namespaces never list, prune
+    or restore each other's files.
     """
 
     ckpt_dir: str = "recovery"
@@ -151,6 +159,8 @@ class RunSupervisor:
         wb = max(1, experiment.window_block)
         self._cadence = ((max(recovery.cadence, wb) + wb - 1) // wb) * wb
         self._depth_effective = 1
+        # the window of the newest durable checkpoint (for heartbeats)
+        self._ckpt_frontier = -1
         # (teardown s, rebuild s, restore s) of each recovery
         self.recovery_walls: list[tuple[float, float, float]] = []
 
@@ -270,6 +280,7 @@ class RunSupervisor:
             # in grid order, so the frontier lands on every save boundary
             if engine._window >= next_save:
                 self._save(engine)
+            self._progress(engine)
 
     def _save(self, engine) -> None:
         rec = self.recovery
@@ -279,8 +290,14 @@ class RunSupervisor:
         engine.checkpoint(path)
         pruned = ckpt_store.RetentionPolicy(rec.keep_last).apply(
             rec.ckpt_dir, rec.namespace)
+        self._ckpt_frontier = engine._window
         self._log("checkpoint", window=engine._window, path=path,
                   pruned=len(pruned))
+
+    def _progress(self, engine) -> None:
+        """Called after every turn of the drive loop: a no-op here; the
+        farm worker overrides it to feed its heartbeat (window frontier,
+        checkpoint frontier, straggler rate)."""
 
     def _handle_fault(self, e: RecoverableError) -> None:
         rec = self.recovery

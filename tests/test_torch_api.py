@@ -178,21 +178,6 @@ def test_fused_window_truncation_raises_in_both():
             api.simulate(exp, **({} if api is J else {"device": "cpu"}))
 
 
-@pytest.mark.parametrize("changes,item", [
-    (dict(recovery=T.Recovery(workers=2)), "item 16"),
-    (dict(recovery=T.Recovery(workers=4),
-          partitioning=T.Partitioning(stat_blocks=4)), "item 16"),
-])
-def test_unported_options_raise(changes, item):
-    exp = T.Experiment(model=T_MODELS["lv2"](),
-                       ensemble=T.Ensemble.make(replicas=4),
-                       schedule=T.Schedule(t_end=1.0, n_windows=2),
-                       **changes)
-    with pytest.raises(T.ExperimentError,
-                       match=f"not ported.*ROADMAP queue 1, {item}"):
-        T.simulate(exp, device="cpu")
-
-
 @pytest.mark.parametrize("api", [J, T], ids=["reference", "port"])
 @pytest.mark.parametrize("case,match", [
     ("no_path", "resume=True requires checkpoint_path"),

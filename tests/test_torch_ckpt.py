@@ -2,7 +2,8 @@
 (`repro_torch.ckpt.store` against `repro.ckpt.store`: digest, files
 that verify across packages, corruption, namespaces, retention), the
 engine's checkpoint file (keys, dtypes, shapes, values), resume across
-packages in both directions, and the legacy and refused files.
+packages in both directions, the legacy and refused files, and a farm
+worker's partial stacks (bp_*, gpp_*) across the packages.
 
 Record means are exact sums of integer populations, so they are held
 bit for bit; var and ci90 to the ulp bound of test_torch_reduction.
@@ -323,21 +324,59 @@ def test_legacy_files_restore(tmp_path, drop):
         assert_same_run(clean_reference("lv2", "exact"), got, drop)
 
 
-@pytest.mark.parametrize("key,item", [
-    ("bp_n", "item 16"), ("gpp_mean", "item 16")])
-def test_files_of_unported_features_are_refused(tmp_path, key, item):
-    ck = str(tmp_path / "ck")
-    run(make_exp(T), max_windows=2, checkpoint_path=ck)
-    z = dict(t_store.verify(ck))
-    z[key] = np.zeros((2, 3), np.int32)
-    t_store.save_atomic(ck, z)
-    eng = T.build_engine(make_exp(T), device="cpu")
-    with pytest.raises(T.ExperimentError,
-                       match=f"{key}.*not ported.*{item}"):
-        eng.restore(ck)
-    assert eng._window == 0 and eng.stream.records() == []
-    with pytest.raises(T.ExperimentError, match=item):
-        run(make_exp(T), checkpoint_path=ck, resume=True)
+@pytest.mark.parametrize("writer,reader", [("port", "reference"),
+                                           ("reference", "port")])
+def test_worker_partial_files_resume_across_packages(tmp_path, writer,
+                                                     reader):
+    """A farm worker's file (a shard engine with block partials on, its
+    bp_* and grouped gpp_* stacks) saved at window 2 by one package
+    restores in the other: the reader's stacks are the file's for the
+    saved windows and its own uninterrupted worker's after them, bit for
+    bit, and the two packages write the keys with one dtype and shape."""
+    from repro.api.run import build_engine as j_build_engine
+
+    builds = {"port": partial(T.build_engine, device="cpu"),
+              "reference": j_build_engine}
+    apis = {"port": T, "reference": J}
+    shard = (640, 1280, 2)
+
+    def worker(name):
+        exp = steered_exp(apis[name]).with_(
+            steering=None, sketch=None, window_block=1)
+        eng = builds[name](exp, shard=shard)
+        eng.enable_block_partials()
+        return eng
+
+    def stacks(eng):
+        return [np.stack([np.asarray(leaf) for leaf in p]).tobytes()
+                for p in eng._block_partials + eng._grouped_partials]
+
+    files = {}
+    for name in ("port", "reference"):
+        eng = worker(name)
+        eng.run_window()
+        eng.run_window()
+        files[name] = str(tmp_path / name)
+        eng.checkpoint(files[name])
+        if name == writer:
+            saved = eng
+    zp, zr = (t_store.verify(files[n]) for n in ("port", "reference"))
+    for k in ("bp_n", "bp_mean", "bp_m2", "gpp_n", "gpp_mean", "gpp_m2"):
+        assert zp[k].dtype == zr[k].dtype == np.float32, k
+        assert zp[k].shape == zr[k].shape, k
+    assert zp["bp_n"].shape == (2, 2, 1)
+    assert zp["gpp_n"].shape == (2, 2, 1, 1)
+    got = worker(reader)
+    got.restore(files[writer])
+    assert stacks(got) == stacks(saved)
+    got.run()
+    clean = worker(reader)
+    clean.run()
+    n = len(clean._block_partials)
+    assert n == len(got._block_partials) == 4
+    assert stacks(got)[:2] == stacks(saved)[:2]
+    assert stacks(got)[2:n] == stacks(clean)[2:n]
+    assert stacks(got)[n + 2:] == stacks(clean)[n + 2:]
 
 
 # ------------------------------------------- steered, sketched files

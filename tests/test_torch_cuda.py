@@ -6,7 +6,8 @@ lanes' ticket, the fused-kernel engine paths against the unfused
 ones, and each window kernel's path through supersteps (pinned rings,
 one host sync per block), through a checkpoint and resume, and through
 four shards on the one card (restores across shard counts, supervised
-drills), bit for bit on one device.
+drills), and a farm of two worker processes on the one card, bit for
+bit on one device.
 
 Every test needs a CUDA device and nvcc and skips itself without them.
 The file imports neither JAX nor the reference package, so it runs
@@ -830,3 +831,29 @@ def test_cuda_supervised_drills_on_shards(cuda, tmp_path):
         assert rep["restarts"] == 2, label
         if label == "loss":
             assert rep["final_n_shards"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_farm_of_two_workers_matches_single_process(cuda, tmp_path):
+    """Two worker processes, both on cuda:0 (each its own CUDA context),
+    on a per-point lv8 sweep: records, per-point stats and the final
+    populations bit for bit equal to the single-process run on the card
+    at the same stat_blocks; each worker launched its window kernel once
+    per window (its own counter)."""
+    exp = _card_exp("lv8", "exact", False, {"reproduce": [0.8, 1.2]},
+                    reduction=T.Reduction.PER_POINT)
+    base = T.simulate(_sharded(exp, 1, stat_blocks=2), device=cuda)
+    got = T.simulate(exp.with_(recovery=T.Recovery(
+        ckpt_dir=str(tmp_path / "farm"), workers=2, heartbeat_s=2.0)),
+        device=cuda)
+    _records_equal(base, got, "farm")
+    pa, pb = base.per_point(), got.per_point()
+    for f in ("n", "mean", "var", "ci90"):
+        assert pa[f].tobytes() == pb[f].tobytes(), f
+    assert base.final_state().tobytes() == got.final_state().tobytes()
+    rep = got.recovery_report()
+    assert rep["restarts"] == 0
+    assert [w["device"] for w in rep["per_worker"].values()] \
+        == [str(cuda)] * 2
+    assert [rep["kernel_launches"][k]["ssa_window"] for k in range(2)] \
+        == [6, 6]

@@ -305,17 +305,6 @@ def test_recovery_validation_matches_reference(tmp_path, bad, match):
         run(make_exp(recovery=T.Recovery(ckpt_dir=str(tmp_path), **bad)))
 
 
-def test_multi_process_farm_is_refused_by_name(tmp_path):
-    """Recovery(workers > 1), the multi-process farm, is queue 1 item
-    16; nothing runs."""
-    exp = make_exp(recovery=T.Recovery(ckpt_dir=str(tmp_path / "rec"),
-                                       workers=2))
-    with pytest.raises(T.ExperimentError,
-                       match="workers > 1 is not ported.*item 16"):
-        run(exp)
-    assert not (tmp_path / "rec").exists()
-
-
 def test_engine_guard_raises_typed_invariant(tmp_path):
     """Direct guard drill: NaN-poison the pool mid-run and step — the
     engine raises InvariantViolation naming the check; with guards off
@@ -344,9 +333,7 @@ def test_recoverable_errors_are_typed():
     ("InvariantViolation", {"check": "negative_mean"})])
 def test_typed_errors_match_reference(name, extra):
     """Every typed fault carries the reference's kind, base class and
-    attributes (HostLost and WorkerStall wait for the multi-process
-    farm, queue 1 item 16, but FailurePlan already accepts their
-    kinds)."""
+    attributes."""
     t_err = getattr(t_fault, name)("boom", window=7, **extra)
     j_err = getattr(j_fault, name)("boom", window=7, **extra)
     assert isinstance(t_err, RecoverableError)
