@@ -144,10 +144,35 @@ Phases (each prints its own lines; any failure exits non-zero):
              and the faulted shard's end. 7d: `python -m
              repro_torch.launch.simulate --workers 4` at 7a's size: its
              CSV equals 7a's records as CsvSink writes them.
-8. report  — one JSON line of per-kernel numbers (launches: the main
-             paths', phase 6's counted sharded runs' and the workers' of
-             7a and 7b, each from its own counter), the card line, then
-             the result line.
+8. examples — each `examples/torch_*.py` through its main() on the
+             card, as written (use_kernel=False) and with use_kernel=True
+             (the window kernel at each example's own shapes: R = 2,
+             per-lane sweep rates, 100 lanes): the pool and the record
+             means bit for bit, var and ci90 bit for bit or within the
+             API tests' ulp tier (each differing field, window and ulps
+             printed), per-point means bit for bit, the E. coli CSV's text
+             the same; then one seed of the sequential oracle on the host
+             against `run_reference_trajectory` on the card (walls only).
+9. llm     — llama3-8b at full width (32 layers, d_model 4096, bf16)
+             from a seeded torch.Generator on the card: 4 prompts of 512
+             tokens prefilled into a 544-slot cache, 32 greedy decode
+             steps; every logit finite; the first decode step against
+             forward on the 513 tokens (at full depth, whose random
+             weights are chaotic, the logits spread is printed and layer
+             0's decoded K/V are gated; the logits are gated on the same
+             config cut to 2 layers) and a 4,096-token prompt's chunked
+             layer-0 attention against full attention, each within its
+             stated bound; prefill ms and tokens/s, decode ms a step,
+             each beside its bound, and the peak memory.
+9b. llm parity — each dense and VLM config at its smoke size in
+             float32, the same weights on the card and the CPU: forward,
+             prefill (cache, last logits) and a decode step within
+             rtol = atol = 2e-4; gemma's smoke size in bf16 (tied
+             embeddings) within 2^-5 of the largest logit.
+10. report — one JSON line of per-kernel numbers (launches: the main
+             paths', phase 6's counted sharded runs', the workers' of
+             7a and 7b and phase 8's use_kernel=True runs, each from its
+             own counter), the card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA device or without
 the `src/repro_torch` package beside this script. Imports nothing from
@@ -2314,6 +2339,456 @@ def phase_farm(device, ref_recs, tol, card) -> int:
     return launches
 
 
+# phase 8: the examples, as written and with the window kernel
+EXAMPLES = ("quickstart", "lotka_volterra_sweep", "ecoli_gene_regulation")
+# tests/test_torch_api.py's tier for record var and ci90 against the
+# reference, should the kernel path's differ from the unfused one's
+EXAMPLE_VAR_ULP = 12
+EXAMPLE_CI90_ULP = 8
+# phase 9: llama3-8b serving at full width
+LLM_ARCH = "llama3-8b"
+LLM_SEED = 0
+LLM_BATCH = 4
+LLM_PROMPT = 512
+LLM_CACHE = 544
+LLM_DECODE = 32
+LLM_LONG = 4096
+# dense bf16 tensor-core peak of the H100 SXM (data sheet, no sparsity)
+PEAK_BF16_OPS = 989e12
+# Decode against forward, each as max |difference| over max |forward's|.
+# With the reference's init (fan_in of wq is n_heads: attention scores
+# of std ~250, softmax one-hot) the 32 layers are chaotic: a rounding
+# difference grows e-fold a layer, to O(1) by layer 8 in bf16 and in
+# float32 alike (measured on an H100). So the full-depth
+# logits spread is printed, the full-depth gate is the first decode
+# step's layer-0 K and V against forward's (bf16: 3.2e-4, 7.6e-4), and
+# the logits gate runs on the same full-width config cut to
+# LLM_CHECK_LAYERS layers, at the reference's test's 2e-2.
+LLM_LAYER0_TOL = 2 ** -7
+LLM_CHECK_LAYERS = 2
+LLM_DECODE_TOL = 2e-2
+# layer 0's chunked attention against full attention on the same q, k, v
+LLM_CHUNK_TOL = 2 ** -6
+# phase 9b: the module on the card against the same module on the CPU
+LLM_DENSE = ("llama3-8b", "gemma-7b", "command-r-35b", "starcoder2-7b",
+             "internvl2-1b")
+LLM_F32_TOL = 2e-4  # rtol and atol, as tests/test_torch_models.py
+LLM_BF16_TOL = 2 ** -5  # max |difference| over max |logit|
+
+
+def max_ulp(a, b) -> int:
+    import numpy as np
+
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return int(np.abs(a.view(np.int32).astype(np.int64)
+                      - b.view(np.int32).astype(np.int64)).max())
+
+
+def run_example(name, device, **kw):
+    """(result, wall s, window-kernel launches) of one
+    examples/torch_<name>.py main() on `device`, its printing
+    swallowed."""
+    import contextlib
+    import io
+    import runpy
+
+    import torch
+
+    from repro_torch.kernels.ssa_step import ssa_window_call
+
+    main = runpy.run_path(str(ROOT / "examples" / f"torch_{name}.py"))[
+        "main"]
+    ssa_window_call.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = main(device=device, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, ssa_window_call.launches
+
+
+def phase_examples(device, card) -> int:
+    """Phase 8: each examples/torch_*.py through its main() on the card,
+    as written (use_kernel=False) and with use_kernel=True: pool state
+    and record means bit for bit, var and ci90 bit for bit or at the API
+    tests' tier (each differing field, window and ulps printed), the
+    E. coli CSV's text the same; then one seed of the sequential oracle
+    on the host against `run_reference_trajectory` on the card (walls
+    only: the two agree statistically, not bit for bit). Returns the
+    window kernel's launches in the use_kernel=True runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.cwc import reference
+    from repro_torch.core.cwc.compile import compile_model
+    from repro_torch.core.cwc.models import ecoli_gene_regulation
+    from repro_torch.core.gillespie import LaneState, run_reference_trajectory
+
+    launches = 0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        for name in EXAMPLES:
+            runs = []
+            for use_kernel in (False, True):
+                kw = {"use_kernel": use_kernel}
+                if name == "ecoli_gene_regulation":
+                    kw["out"] = f"{tmp}/ecoli_{int(use_kernel)}.csv"
+                runs.append(run_example(name, device, **kw))
+            (plain, p_s, p_l), (fused, f_s, f_l) = runs
+            n_win = len(plain.records)
+            eng = fused._engine
+            if p_l != 0 or f_l < n_win:
+                raise AssertionError(
+                    f"8 {name}: {p_l} kernel launches as written, {f_l} "
+                    f"with use_kernel=True for {n_win} windows")
+            launches += f_l
+            differ = [f for f in LaneState._fields if not torch.equal(
+                getattr(plain._engine._pool, f), getattr(eng._pool, f))]
+            if differ:
+                raise AssertionError(f"8 {name}: the kernel path's pool "
+                                     f"differs from the unfused one's in "
+                                     f"{differ}")
+            if plain.means().tobytes() != fused.means().tobytes() or [
+                    (r.t, r.window, r.n) for r in plain.records] != [
+                    (r.t, r.window, r.n) for r in fused.records]:
+                raise AssertionError(f"8 {name}: record means differ")
+            notes = []
+            for field, tier in (("var", EXAMPLE_VAR_ULP),
+                                ("ci90", EXAMPLE_CI90_ULP)):
+                for a, b in zip(plain.records, fused.records):
+                    u = max_ulp(getattr(a, field), getattr(b, field))
+                    if u:
+                        notes.append(f"{field} window {a.window} {u} ulp")
+                    if u > tier:
+                        raise AssertionError(
+                            f"8 {name}: {field} of window {a.window} "
+                            f"differs by {u} ulp (tier {tier})")
+            if plain.per_point() is not None:
+                pp, fp = plain.per_point(), fused.per_point()
+                if pp["mean"].tobytes() != fp["mean"].tobytes():
+                    raise AssertionError(f"8 {name}: per-point means "
+                                         "differ")
+            if name == "ecoli_gene_regulation":
+                with open(f"{tmp}/ecoli_0.csv") as a, \
+                        open(f"{tmp}/ecoli_1.csv") as b:
+                    text = a.read()
+                    if text != b.read() or len(text.splitlines()) != 101:
+                        raise AssertionError("8 ecoli: the CSV's text "
+                                             "differs between the runs")
+            rates = ("per-lane sweep rates" if fused.experiment.ensemble.sweep
+                     else "shared rates")
+            log(f"[examples] 8 {name}: {eng.system.n_species} species, "
+                f"{eng.system.n_reactions} reactions, "
+                f"{fused.experiment.ensemble.n_instances} instances on "
+                f"{fused.experiment.n_lanes} lanes, {rates}, {n_win} "
+                f"windows: as written {p_s:.3f} s, use_kernel=True "
+                f"{f_s:.3f} s with {f_l} window-kernel launches; pool and "
+                f"record means bitwise"
+                + (f"; per-point means bitwise" if plain.per_point()
+                   is not None else "")
+                + (f"; CSV text equal" if name == "ecoli_gene_regulation"
+                   else "")
+                + ("; var and ci90 bitwise" if not notes else
+                   f"; within the tier: {notes}") + f"; {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    model = ecoli_gene_regulation()
+    grid = np.linspace(1.0, 100.0, 100)  # the E. coli example's grid
+    t0 = time.perf_counter()
+    oracle = reference.simulate(model, grid, seed=0)
+    host_s = time.perf_counter() - t0
+    system, _ = compile_model(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lane = run_reference_trajectory(system, grid, seed=0, device=device)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    if oracle.shape != (100, 2) or tuple(lane.shape) != (
+            100, system.n_species) or not (np.isfinite(oracle).all() and
+                                           bool(torch.isfinite(lane).all())):
+        raise AssertionError("8: the oracle's or the lane's trajectory is "
+                             "malformed")
+    log(f"[examples] 8 oracle (core/cwc/reference.py, the paper's Fig. 3 "
+        f"Match on the host) seed 0, E. coli to t=100 on 100 grid points: "
+        f"{host_s:.4f} s; run_reference_trajectory (one lane, the dense "
+        f"exact SSA step by step on the card) {card_s:.4f} s; final "
+        f"species {oracle[-1].tolist()} (observables) and "
+        f"{lane[-1].tolist()} (all species; statistical agreement only)")
+    return launches
+
+
+def _stack_slice(tree, i):
+    if isinstance(tree, dict):
+        return {k: _stack_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def logits_spread(got, ref) -> tuple[float, float]:
+    """(max |got - ref| over max |ref|, share of rows whose argmax
+    agrees)."""
+    d = float((got - ref).abs().max()) / float(ref.abs().max())
+    return d, float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+
+
+def decode_against_forward(cfg, device) -> float:
+    """The first decode step after a LLM_PROMPT-token prefill against
+    forward on the LLM_PROMPT + 1 tokens, on seeded weights: max |diff|
+    over max |logit|."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LLM_SEED)
+    model = build_model(cfg, device=device).init(gen)
+    b, p, v = LLM_BATCH, LLM_PROMPT, cfg.vocab_size
+    prompts = torch.randint(0, v, (b, p + 1), generator=gen, device=device)
+    cache, _ = model.prefill({"tokens": prompts[:, :p]}, cache_len=LLM_CACHE)
+    step, _ = model.decode_step(cache, prompts[:, p:],
+                                torch.full((b,), p, device=device))
+    full, _, _ = model.forward({"tokens": prompts})
+    return logits_spread(step[:, 0, :v], full[:, p, :v])[0]
+
+
+def phase_llm(device, card) -> None:
+    """Phase 9: llama3-8b at full width from seeded weights: 4 requests
+    of 512 prompt tokens prefilled into a 544-slot cache, 32 greedy
+    decode steps; gates on finite logits, the first decode step against
+    forward on the 513 tokens (layer 0's K/V at full depth, the logits on
+    the config cut to LLM_CHECK_LAYERS layers), and a 4,096-token prompt's
+    chunked layer-0 attention against full attention."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    from repro_torch.models.norms import apply_norm
+
+    # the reference's products accumulate in float32: no bf16 partial
+    # sums in cuBLAS's split reductions (set here, by the caller)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    cfg = get_config(LLM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    # the peak from here on counts the weights, which stay allocated
+    torch.cuda.reset_peak_memory_stats(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LLM_SEED)
+    model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[llm] 9 {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
+        f" {cfg.n_heads} heads ({cfg.n_kv_heads} KV), d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), {cfg.dtype}: "
+        f"{n_params:,} parameters, {w_bytes / 1e9:.3f} GB, initialised "
+        f"from torch.Generator seed {LLM_SEED} on the card in "
+        f"{init_s:.2f} s; bf16 reduced-precision reductions "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+
+    b, p = LLM_BATCH, LLM_PROMPT
+    prompts = torch.randint(0, cfg.vocab_size, (b, p + 1), generator=gen,
+                            device=device)
+    batch = {"tokens": prompts[:, :p]}
+    model.prefill(batch, cache_len=LLM_CACHE)  # warm-up: cuBLAS, allocator
+    out = [None]
+
+    def prefill():
+        out[0] = model.prefill(batch, cache_len=LLM_CACHE)
+
+    pre_ms = cuda_ms(prefill)
+    cache, last = out[0]
+    token = prompts[:, p:p + 1]  # the 513th token, then greedy
+    step_ms, step_logits = [], []
+    for i in range(LLM_DECODE):
+        pos = torch.full((b,), p + i, dtype=torch.long, device=device)
+
+        def step():
+            out[0] = model.decode_step(cache, token, pos)
+
+        step_ms.append(cuda_ms(step))
+        logits, cache = out[0]
+        step_logits.append(logits)
+        token = logits[:, :, :cfg.vocab_size].argmax(dim=-1)
+    logits = torch.cat(step_logits, dim=1)  # (B, 32, V)
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(last).all())):
+        raise AssertionError("9: a prefill or decode logit is not finite")
+    full, fcache, _ = model.forward({"tokens": prompts}, mode="prefill")
+    v = cfg.vocab_size
+    spread, agree = logits_spread(logits[:, 0, :v], full[:, p, :v])
+    d_pre, _ = logits_spread(last[:, 0, :v], full[:, p - 1, :v])
+    growth = []  # per layer: the decoded position's K/V against forward's
+    for kv in ("k", "v"):
+        a = cache["stack"]["l0"][kv][:, :, p].float()
+        r = fcache["stack"]["l0"][kv][:, :, p].float()
+        growth.append((a - r).abs().amax(dim=(1, 2, 3))
+                      / r.abs().amax(dim=(1, 2, 3)))
+    growth = torch.maximum(*growth).tolist()
+    log(f"[llm] 9 first decode step against forward on the {p + 1} tokens "
+        f"at full depth: max |diff| over max |logit| {spread:.4g}, argmax "
+        f"equal on {agree:.2f} of the rows (chaotic depth: printed, not "
+        f"gated); prefill's last logits against forward's position "
+        f"{p - 1}: {d_pre:.4g}; the decoded position's K/V against "
+        f"forward's, layer by layer: {[f'{g:.3g}' for g in growth]} "
+        f"(layer 0 bound {LLM_LAYER0_TOL:.4g})")
+    if not growth[0] <= LLM_LAYER0_TOL:
+        raise AssertionError("9: layer 0's decoded K/V disagree with "
+                             "forward's")
+    del full, fcache
+    cut = decode_against_forward(
+        dataclasses.replace(cfg, n_layers=LLM_CHECK_LAYERS), device)
+    log(f"[llm] 9 the same full-width config cut to {LLM_CHECK_LAYERS} "
+        f"layers: first decode step against forward, max |diff| over max "
+        f"|logit| {cut:.4g} (bound {LLM_DECODE_TOL})")
+    if not cut <= LLM_DECODE_TOL:
+        raise AssertionError("9: decode disagrees with forward")
+
+    long = torch.randint(0, cfg.vocab_size, (1, LLM_LONG), generator=gen,
+                         device=device)
+    def prefill_long():
+        out[0] = model.prefill({"tokens": long})
+
+    prefill_long()  # warm-up
+    long_ms = cuda_ms(prefill_long)
+    if not bool(torch.isfinite(out[0][1]).all()):
+        raise AssertionError("9: the long prompt's logits are not finite")
+    params = model.params()
+    p0 = _stack_slice(params["blocks"]["stack"]["l0"], 0)
+    with torch.no_grad():
+        h = apply_norm(p0["norm1"], params["embed"][long], cfg.norm)
+        pos = torch.arange(LLM_LONG, dtype=torch.int32, device=device)[None]
+        q, k, vv = attn.project_qkv(p0["mixer"], h, cfg, pos)
+        hd_scale = cfg.resolved_head_dim ** -0.5
+        if not LLM_LONG > attn.FULL_ATTN_MAX_SEQ:
+            raise AssertionError("9: the long prompt takes the full path")
+        o_c = attn.attention(q, k, vv, causal=True)
+        o_f = attn.full_attention(q, k, vv, causal=True)
+        # how sharp layer 0's attention is under the reference's init
+        scores = torch.einsum(
+            "bqhk,bshk->bhqs", q.float(),
+            attn._expand_kv(k, cfg.n_heads).float()) * hd_scale
+        causal = torch.ones(LLM_LONG, LLM_LONG, dtype=torch.bool,
+                            device=device).tril()
+        s_std = float(scores[..., causal].std())
+        p_max = float(torch.softmax(scores.masked_fill(
+            ~causal, attn.NEG_INF), dim=-1).amax(dim=-1).mean())
+        del scores
+        c_ms = cuda_ms(lambda: attn.attention(q, k, vv, causal=True))
+        f_ms = cuda_ms(lambda: attn.full_attention(q, k, vv, causal=True))
+    d_ch = float((o_c.float() - o_f.float()).abs().max())
+    s_ch = float(o_f.float().abs().max())
+    log(f"[llm] 9 a {LLM_LONG}-token prompt (B=1) prefilled through the "
+        f"chunked path ({attn.Q_CHUNK} x {attn.KV_CHUNK} chunks) in "
+        f"{long_ms:.3f} ms; layer 0's chunked attention {c_ms:.3f} ms "
+        f"against full attention {f_ms:.3f} ms on the same q, k, v: max "
+        f"|diff| {d_ch:.5g} over max |o| {s_ch:.5g} = {d_ch / s_ch:.4g} "
+        f"(bound {LLM_CHUNK_TOL:.4g}); its causal scores' std {s_std:.5g}, "
+        f"mean largest softmax weight {p_max:.4f}")
+    if not d_ch <= LLM_CHUNK_TOL * s_ch:
+        raise AssertionError("9: chunked attention disagrees with full")
+
+    tokens = b * p
+    kv_bytes = sum(t.numel() * t.element_size() for layer in
+                   cache["stack"].values() for t in layer.values())
+    dec_bound = (w_bytes + kv_bytes) / PEAK_BYTES_S * 1e3
+    pre_bound = 2 * n_params * tokens / PEAK_BF16_OPS * 1e3
+    dec = step_ms[1:]
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    log(f"[llm] 9 prefill {b} x {p} tokens: {pre_ms:.3f} ms, "
+        f"{tokens / (pre_ms / 1e3):.5g} tokens/s; bound {pre_bound:.3f} ms "
+        f"(2 x parameters x tokens at {PEAK_BF16_OPS / 1e12:g} TFLOP/s "
+        f"bf16), {pre_bound / pre_ms:.3f} of it")
+    log(f"[llm] 9 decode {LLM_DECODE} greedy steps at batch {b}: first "
+        f"{step_ms[0]:.3f} ms, then mean {np.mean(dec):.3f} ms (min "
+        f"{min(dec):.3f}, max {max(dec):.3f}); bound {dec_bound:.3f} ms a "
+        f"step (weights {w_bytes / 1e9:.3f} GB + KV cache "
+        f"{kv_bytes / 1e9:.4f} GB at {PEAK_BYTES_S / 1e12:g} TB/s), "
+        f"{dec_bound / np.mean(dec):.3f} of it; "
+        f"{b * 1e3 / np.mean(dec):.5g} tokens/s")
+    log(f"[llm] 9 peak memory (torch.cuda.max_memory_allocated) "
+        f"{peak_gb:.3f} GB; {card}")
+    del model, params, p0, cache, out, logits, step_logits
+    torch.cuda.empty_cache()
+
+
+def phase_llm_parity(device) -> None:
+    """Phase 9b: each dense and VLM config at its smoke size, float32,
+    the same weights on the card and on the CPU: forward, prefill (cache
+    and last logits) and one decode step agree within LLM_F32_TOL; and
+    gemma's smoke size in bf16 (tied embeddings: the card's float32-
+    output product of the transposed table) within LLM_BF16_TOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import build_model
+
+    def diff(a, b, what, tol=LLM_F32_TOL):
+        a, b = a.float().cpu(), b.float()
+        worst = float(((a - b).abs() - tol * b.abs()).max())
+        if not worst <= tol:
+            raise AssertionError(f"9b {what}: card and CPU disagree "
+                                 f"beyond rtol = atol = {tol}")
+        return float((a - b).abs().max())
+
+    cases = [(n, get_smoke_config(n)) for n in LLM_DENSE]
+    cases.append(("gemma-7b bf16", dataclasses.replace(
+        get_smoke_config("gemma-7b"), dtype="bfloat16")))
+    for label, cfg in cases:
+        host = build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(1))
+        dev = build_model(cfg, device=device)
+        dev.load_state_dict(host.state_dict())
+        rng = np.random.default_rng(2)
+        n_pre = cfg.frontend_tokens if cfg.frontend != "none" else 0
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 32 - n_pre))}
+        if n_pre:
+            batch["embeds"] = rng.standard_normal(
+                (2, n_pre, cfg.d_model)).astype(np.float32)
+        v = cfg.vocab_size
+        f_dev = dev.forward(batch)[0][..., :v]
+        f_host = host.forward(batch)[0][..., :v]
+        if cfg.dtype == "bfloat16":
+            rel = float((f_dev.cpu() - f_host).abs().max()
+                        / f_host.abs().max())
+            log(f"[llm] 9b {label}: forward logits card against CPU max "
+                f"|diff| over max |logit| {rel:.4g} (bound "
+                f"{LLM_BF16_TOL:.4g})")
+            if not rel <= LLM_BF16_TOL:
+                raise AssertionError(f"9b {label}: card and CPU disagree")
+            continue
+        worst = [diff(f_dev, f_host, f"{label} forward")]
+        (c_dev, l_dev), (c_host, l_host) = (
+            m.prefill(batch, cache_len=36) for m in (dev, host))
+        worst.append(diff(l_dev, l_host, f"{label} prefill logits"))
+        for name in c_host["stack"]:
+            for kv in ("k", "v"):
+                worst.append(diff(c_dev["stack"][name][kv],
+                                  c_host["stack"][name][kv],
+                                  f"{label} prefill cache"))
+        token = rng.integers(0, cfg.vocab_size, (2, 1))
+        pos = np.full((2,), 32)
+        worst.append(diff(dev.decode_step(c_dev, token, pos)[0],
+                          host.decode_step(c_host, token, pos)[0],
+                          f"{label} decode"))
+        log(f"[llm] 9b {label}: forward, prefill (logits, cache) and "
+            f"decode on the card against the CPU, float32: max |diff| "
+            f"{max(worst):.3g} (rtol = atol = {LLM_F32_TOL})")
+
+
 def main() -> int:
     try:
         import torch
@@ -2348,6 +2823,9 @@ def main() -> int:
     phase_sketch_sparse(device, sparse["records"], sparse["win_ms"], card)
     shard_launches, shard_ref = phase_sharded(device, dense["records"], card)
     shard_launches["ssa_window"] += phase_farm(device, shard_ref, tol, card)
+    shard_launches["ssa_window"] += phase_examples(device, card)
+    phase_llm(device, card)
+    phase_llm_parity(device)
     entries = [
         ("ssa_window", "ssa_window.cu", "src/repro/kernels/ssa_step.py:64",
          dense),

@@ -4,7 +4,8 @@
 A term is a multiset of simple terms; a simple term is an atom or a
 compartment (wrap | content)^label. Multisets are collections.Counter
 over atom names; compartments are explicit objects so nesting is
-preserved. This symbolic representation feeds the tensorising compiler
+preserved. This symbolic representation feeds both the faithful
+sequential simulator (reference.py) and the tensorising compiler
 (compile.py).
 """
 from __future__ import annotations

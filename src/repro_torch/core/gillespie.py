@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.mathf import log_f32
 from repro_torch.core.reactions import (
     ReactionSystem,
@@ -348,3 +349,18 @@ def advance_to(state: LaneState, system_tensors, horizon,
     horizon = torch.as_tensor(np.float32(horizon), device=state.t.device)
     return make_advance_fn(ssa_step, (idx, coef, delta), max_steps)(
         state, rates, horizon)
+
+
+def run_reference_trajectory(system: ReactionSystem, t_grid, seed: int = 0,
+                             device=None) -> torch.Tensor:
+    """Single-lane convenience wrapper: the (T, S) populations sampled on
+    t_grid, one `advance_to` a grid point (the reference's host loop).
+    Runs on the CUDA device unless `device="cpu"`."""
+    device = resolve_device(device)
+    st = init_lanes(system, 1, seed, device=device)
+    tensors = system_tensors(system, device=device)
+    out = []
+    for h in t_grid:
+        st = advance_to(st, tensors, float(h))
+        out.append(st.x[0])
+    return torch.stack(out)

@@ -146,7 +146,9 @@ class CsvSink:
     """Incremental CSV writer for the stats stream: one open handle per
     run, flushed on close(). Same columns and number formats as the
     reference's sink, so the two packages write identical files for
-    identical records."""
+    identical records. Usable as a context manager; `StatsStream.close()`
+    / `simulate()` close it, and the finaliser is a safety net for
+    abandoned handles."""
 
     def __init__(self, path: str, obs_names: list[str]):
         self.path = path
@@ -179,3 +181,14 @@ class CsvSink:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    def __del__(self):  # safety net: prefer an explicit close()
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def csv_sink(path: str, obs_names: list[str]) -> CsvSink:
+    """Constructor for CsvSink under the reference's functional name."""
+    return CsvSink(path, obs_names)

@@ -9,6 +9,11 @@ state without this package importing the other.
                   fields
   pool_arrays:   {x, t, key, ctr, ctr_hi, steps, leaps, dead, no_leap}
                   — `LaneState` leaves
+
+The LM skeleton's parameter and cache trees cross the same way: the
+reference's nested dicts and lists of arrays (repeated layers stacked
+on a leading axis under "stack"), named leaf for leaf as the port's
+`CausalLM` names its parameters. bfloat16 leaves travel as their bits.
 """
 from __future__ import annotations
 
@@ -58,3 +63,81 @@ def to_reference_arrays(system: ReactionSystem, pool: LaneState
         a = getattr(pool, f).cpu().numpy()
         poold[f] = a.view(np.uint32) if f in _WORDS else a
     return sysd, poold
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    """{dotted name: leaf} of a nested dict / list (list entries are
+    named by their index)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def _to_array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # its bits, as int16
+        return t.view(torch.int16).numpy()
+    return t.numpy()
+
+
+def lm_params_from_reference(cfg, tree) -> dict:
+    """The reference's `CausalLM.init` tree (numpy arrays) as a state
+    dict of host tensors for the port's `CausalLM(cfg)`
+    (`model.load_state_dict(...)` copies them to its device): the same
+    names and shapes, each checked against the port's parameter
+    definitions."""
+    from repro_torch.models.causal_lm import model_defs
+    from repro_torch.models.common import flatten_defs
+
+    flat = _flatten(tree)
+    want = dict(flatten_defs(model_defs(cfg)))
+    if set(flat) != set(want):
+        raise ValueError(
+            f"{cfg.name}: the reference's parameter tree does not match the "
+            f"port's: missing {sorted(set(want) - set(flat))}, unexpected "
+            f"{sorted(set(flat) - set(want))}")
+    for name, a in flat.items():
+        if tuple(np.shape(a)) != tuple(want[name].shape):
+            raise ValueError(f"{cfg.name}: {name} has shape {np.shape(a)}, "
+                             f"the port's {want[name].shape}")
+    return {name: _to_tensor(a, "cpu") for name, a in flat.items()}
+
+
+def lm_cache_from_reference(tree, device=None):
+    """A KV cache tree of the reference's (numpy) as the port's tensors
+    on `device` (default: the CUDA device)."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _to_tensor(node, dev)
+
+    return walk(tree)
+
+
+def lm_cache_to_reference(cache):
+    """The port's KV cache tree as numpy arrays, the reference's layout
+    (bfloat16 leaves as their int16 bits)."""
+    if isinstance(cache, dict):
+        return {k: lm_cache_to_reference(v) for k, v in cache.items()}
+    if isinstance(cache, (list, tuple)):
+        return [lm_cache_to_reference(v) for v in cache]
+    return _to_array(cache)

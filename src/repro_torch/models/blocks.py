@@ -1,0 +1,246 @@
+"""Block assembly and layer stacking; port of `repro/models/blocks.py`.
+
+A block = pre-norm attention mixer + pre-norm dense FFN, with optional
+parallel residual (command-r). Layer stacks are decomposed into
+`prefix + pattern × n_repeat` (`layer_groups`), and the repeated
+pattern's parameters and caches are stacked on a leading (n_repeat,)
+axis, as the reference stacks them for `lax.scan`, so the two packages'
+parameter and cache trees map one to one. A Python loop over the
+repeats replaces the scan. Experts (`FFN_MOE`) are ROADMAP queue 1
+item 18b.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import (
+    FFN_DENSE,
+    FFN_MOE,
+    FFN_NONE,
+    MIXER_ATTN,
+    LayerSpec,
+    ModelConfig,
+)
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.mlp import apply_mlp, mlp_defs
+from repro_torch.models.norms import apply_norm, norm_defs
+
+MOE_UNPORTED = ("the mixture-of-experts FFN (models/moe.py) is not ported "
+                "yet: ROADMAP queue 1 item 18b")
+
+# ---------------------------------------------------------------------------
+# Layer grouping
+# ---------------------------------------------------------------------------
+
+
+class LayerGroups(NamedTuple):
+    prefix: tuple[LayerSpec, ...]
+    pattern: tuple[LayerSpec, ...]
+    n_repeat: int
+
+
+def layer_groups(specs: tuple[LayerSpec, ...], max_period: int = 12
+                 ) -> LayerGroups:
+    n = len(specs)
+    for prefix_len in range(0, n):
+        rest = specs[prefix_len:]
+        m = len(rest)
+        for p in range(1, min(max_period, m) + 1):
+            if m % p:
+                continue
+            if all(rest[i] == rest[i % p] for i in range(m)):
+                return LayerGroups(specs[:prefix_len], rest[:p], m // p)
+    return LayerGroups(specs[:-1], specs[-1:], 1)
+
+
+# ---------------------------------------------------------------------------
+# Single block
+# ---------------------------------------------------------------------------
+
+
+def block_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
+    d = {"norm1": norm_defs(cfg.d_model, cfg.norm)}
+    if spec.mixer == MIXER_ATTN:
+        d["mixer"] = attn_mod.attn_defs(cfg)
+    else:
+        raise ValueError(spec.mixer)
+    if spec.ffn == FFN_DENSE:
+        d["ffn"] = mlp_defs(cfg)
+        if not cfg.parallel_block:
+            d["norm2"] = norm_defs(cfg.d_model, cfg.norm)
+    elif spec.ffn == FFN_MOE:
+        raise NotImplementedError(MOE_UNPORTED)
+    return d
+
+
+def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     cache_len: int, dtype, device):
+    """Decode-time cache entry for one block."""
+    hd = cfg.resolved_head_dim
+    if spec.mixer == MIXER_ATTN:
+        shape = (batch, cache_len, cfg.n_kv_heads, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    raise ValueError(spec.mixer)
+
+
+def _apply_attn_full(params, x, cfg, positions):
+    q, k, v = attn_mod.project_qkv(params, x, cfg, positions)
+    o = attn_mod.attention(q, k, v, causal=True)
+    return attn_mod.out_proj(params, o), {"k": k, "v": v}
+
+
+def _apply_attn_decode(params, x, cfg, cache, pos):
+    """x: (B,1,d); cache k/v (B,S,KV,hd); pos (B,) current write index."""
+    positions = pos[:, None]
+    q, k_new, v_new = attn_mod.project_qkv(params, x, cfg, positions)
+    s = cache["k"].shape[1]
+    slot = torch.clamp_max(pos, s - 1)  # ring write
+    k_c, v_c = attn_mod.write_kv_slot(cache["k"], cache["v"], k_new, v_new,
+                                      slot)
+    o = attn_mod.decode_attention(q, k_c, v_c, slot, valid_len=pos)
+    return attn_mod.out_proj(params, o), {"k": k_c, "v": v_c}
+
+
+def apply_block(params, x, cfg: ModelConfig, spec: LayerSpec, *,
+                mode: str = "full", positions=None,
+                cache: Optional[dict] = None, pos=None):
+    """Returns (x, new_cache).
+
+    mode: "full" (no cache IO), "prefill" (returns the built cache),
+    "decode" (single token, writes its K/V into `cache` in place).
+    """
+    h = apply_norm(params["norm1"], x, cfg.norm)
+    new_cache: dict = {}
+
+    if spec.mixer != MIXER_ATTN:
+        raise ValueError(spec.mixer)
+    if mode == "decode":
+        mix_out, kv = _apply_attn_decode(params["mixer"], h, cfg, cache, pos)
+        new_cache.update(kv)
+    else:
+        mix_out, kv = _apply_attn_full(params["mixer"], h, cfg, positions)
+        if mode == "prefill":
+            new_cache.update(kv)
+
+    if spec.ffn == FFN_MOE:
+        raise NotImplementedError(MOE_UNPORTED)
+    if cfg.parallel_block and spec.ffn != FFN_NONE:
+        # command-r: y = x + attn(n(x)) + ffn(n(x)) (shared norm)
+        return x + mix_out + apply_mlp(params["ffn"], h, cfg), new_cache
+
+    x = x + mix_out
+    if spec.ffn != FFN_NONE:
+        h2 = apply_norm(params["norm2"], x, cfg.norm)
+        x = x + apply_mlp(params["ffn"], h2, cfg)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Stacks (prefix + stacked pattern)
+# ---------------------------------------------------------------------------
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def stack_defs(cfg: ModelConfig, specs: tuple[LayerSpec, ...]) -> dict:
+    groups = layer_groups(specs)
+    d: dict = {"prefix": [block_defs(cfg, s) for s in groups.prefix]}
+    if groups.n_repeat:
+        pat = {f"l{j}": block_defs(cfg, s)
+               for j, s in enumerate(groups.pattern)}
+        d["stack"] = _map(lambda pd: pd.stacked(groups.n_repeat), pat)
+    return d
+
+
+def pad_cache(cache, cache_len: int):
+    """Pad attention K/V cache seq axes (axis = ndim-3) out to cache_len
+    so decode has ring-write headroom."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if k in ("k", "v"):
+                    ax = v.ndim - 3
+                    if v.shape[ax] < cache_len:
+                        # F.pad lists (left, right) from the last axis
+                        pad = [0, 0] * (v.ndim - 1 - ax) + [
+                            0, cache_len - v.shape[ax]]
+                        v = F.pad(v, pad)
+                    out[k] = v
+                else:
+                    out[k] = walk(v)
+            return out
+        if isinstance(node, list):
+            return [walk(x) for x in node]
+        return node
+
+    return walk(cache)
+
+
+def stack_cache_init(cfg: ModelConfig, specs, batch: int, cache_len: int,
+                     dtype, device):
+    groups = layer_groups(specs)
+    cache: dict = {"prefix": [
+        init_block_cache(cfg, s, batch, cache_len, dtype, device)
+        for s in groups.prefix]}
+    if groups.n_repeat:
+        pat = {f"l{j}": init_block_cache(cfg, s, batch, cache_len, dtype,
+                                         device)
+               for j, s in enumerate(groups.pattern)}
+        cache["stack"] = _map(
+            lambda a: a.expand(groups.n_repeat, *a.shape).clone(), pat)
+    return cache
+
+
+def apply_stack(params, x, cfg: ModelConfig, specs, *, mode="full",
+                positions=None, cache=None, pos=None):
+    """Run the full layer stack. Returns (x, new_cache).
+
+    In "decode" mode each layer's K/V slot is written into `cache` in
+    place (a repeat's cache is a view of the stacked tensors), and the
+    returned cache is `cache` itself. In "prefill" mode the repeats'
+    K/V are stacked on a leading (n_repeat,) axis, as the reference's
+    scan stacks them.
+    """
+    groups = layer_groups(specs)
+    new_cache: dict = {"prefix": []}
+
+    for i, spec in enumerate(groups.prefix):
+        c = cache["prefix"][i] if cache is not None else None
+        x, nc = apply_block(params["prefix"][i], x, cfg, spec, mode=mode,
+                            positions=positions, cache=c, pos=pos)
+        new_cache["prefix"].append(nc)
+
+    if not groups.n_repeat:
+        return x, new_cache
+
+    per_repeat = []
+    for r in range(groups.n_repeat):
+        ncs = {}
+        for j, spec in enumerate(groups.pattern):
+            p = _map(lambda a: a[r], params["stack"][f"l{j}"])
+            c = (_map(lambda a: a[r], cache["stack"][f"l{j}"])
+                 if cache is not None else None)
+            x, ncs[f"l{j}"] = apply_block(p, x, cfg, spec, mode=mode,
+                                          positions=positions, cache=c,
+                                          pos=pos)
+        per_repeat.append(ncs)
+    if mode == "decode":
+        new_cache["stack"] = cache["stack"]
+    else:
+        new_cache["stack"] = {
+            name: {k: torch.stack([rep[name][k] for rep in per_repeat])
+                   for k in per_repeat[0][name]}
+            for name in per_repeat[0]}
+    return x, new_cache

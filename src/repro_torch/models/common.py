@@ -1,0 +1,145 @@
+"""Spec-first parameter machinery; port of `repro/models/common.py`.
+
+Every module declares its parameters as a tree of `ParamDef`s (shape +
+logical axes + initializer), so the parameters, their byte count and
+their names all derive from the same tree.
+
+The reference's products emit the input dtype with float32 accumulation,
+or float32 where they ask for it. `matmul` and `einsum` do the same:
+torch's products accumulate in float32 and emit the input dtype; a
+float32 result from lower-precision inputs is the float32 product of
+the upcast inputs (a product of two bf16 values is exact in float32),
+and on the card the float32-output product of the inputs themselves.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.sharding.rules import LAYERS
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    logical: tuple[Optional[str], ...]
+    init: str = "fan_in"  # fan_in | zeros | ones | normal | embed
+    scale: float = 1.0
+    dtype: Optional[Any] = None  # override model dtype (e.g. fp32 gates)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"ParamDef shape {self.shape} and logical "
+                             f"axes {self.logical} differ in rank")
+
+    def stacked(self, n: int) -> "ParamDef":
+        return dataclasses.replace(
+            self, shape=(n, *self.shape), logical=(LAYERS, *self.logical))
+
+
+ParamTree = Any  # nested dict / list of tensors
+DefTree = Any  # nested dict / list of ParamDef
+
+
+def flatten_defs(defs: DefTree, prefix: str = "") -> list[tuple[str, ParamDef]]:
+    """(dotted name, ParamDef) of every leaf, dict keys in sorted order
+    (the order `jax.tree.flatten` visits them); list entries are named
+    by their index."""
+    if isinstance(defs, ParamDef):
+        return [(prefix, defs)]
+    items = (sorted(defs.items()) if isinstance(defs, dict)
+             else [(str(i), d) for i, d in enumerate(defs)])
+    out = []
+    for k, d in items:
+        out.extend(flatten_defs(d, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+def init_one(d: ParamDef, default_dtype, generator: torch.Generator,
+             device) -> torch.Tensor:
+    """One leaf by the reference's rules (`_init_one`): zeros, ones,
+    N(0, scale) for "normal" and "embed", and N(0, scale/sqrt(fan_in))
+    for "fan_in" with fan_in the second-to-last dimension (the last of a
+    1-D leaf), drawn in float32 from `generator`, then cast."""
+    dtype = d.dtype or default_dtype
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init in ("normal", "embed"):
+        std = d.scale
+    elif d.init == "fan_in":
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        std = d.scale / np.sqrt(max(1, fan_in))
+    else:
+        raise ValueError(f"unknown init {d.init}")
+    x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x.mul_(float(std))).to(dtype)
+
+
+def init_params(defs: DefTree, dtype_name: str, generator: torch.Generator,
+                device) -> ParamTree:
+    """Materialise a DefTree into tensors on `device`, the leaves drawn
+    in `flatten_defs` order from one explicit generator (which must live
+    on `device`). The bits are torch's, not `jax.random`'s: weights cross
+    between the packages through `interop.lm_params_from_reference`."""
+    default_dtype = DTYPES[dtype_name]
+    leaves = {name: init_one(d, default_dtype, generator, device)
+              for name, d in flatten_defs(defs)}
+
+    def build(node, prefix):
+        if isinstance(node, ParamDef):
+            return leaves[prefix]
+        if isinstance(node, dict):
+            return {k: build(v, f"{prefix}.{k}" if prefix else k)
+                    for k, v in node.items()}
+        return [build(v, f"{prefix}.{i}" if prefix else str(i))
+                for i, v in enumerate(node)]
+
+    return build(defs, "")
+
+
+def param_bytes(defs: DefTree, dtype_name: str) -> int:
+    dt = DTYPES[dtype_name]
+    total = 0
+    for _, d in flatten_defs(defs):
+        itemsize = torch.empty((), dtype=d.dtype or dt).element_size()
+        total += int(np.prod(d.shape)) * itemsize
+    return total
+
+
+# ---------------------------------------------------------------------------
+# numerics helpers
+# ---------------------------------------------------------------------------
+
+
+def matmul(x, w, dtype=None):
+    """x @ w emitting `dtype` (default: x's dtype), accumulated in
+    float32. A float32 result from lower-precision inputs is one
+    float32-output product on the card and the product of the upcast
+    inputs on the CPU, which has no such product."""
+    out = dtype or x.dtype
+    if out == x.dtype:
+        return x @ w
+    if x.is_cuda and w.ndim == 2:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=out)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return x.to(out) @ w.to(out)
+
+
+def einsum(subs, *args, dtype=None):
+    """Einsum emitting `dtype` (default: the first input's dtype).
+    Pass dtype=torch.float32 only where downstream math needs wide
+    outputs (logits, attention scores)."""
+    out = dtype or args[0].dtype
+    if any(a.dtype != out for a in args):
+        args = tuple(a.to(out) for a in args)
+    return torch.einsum(subs, *args)

@@ -263,3 +263,13 @@ def test_port_sources_import_neither_jax_nor_reference():
     assert len(files) > 20
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert hits == []
+
+
+def test_port_examples_import_neither_jax_nor_reference():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)\b", re.M)
+    files = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [f.name for f in files] == [
+        "torch_ecoli_gene_regulation.py", "torch_lotka_volterra_sweep.py",
+        "torch_quickstart.py"]
+    hits = [str(f) for f in files if pat.search(f.read_text())]
+    assert hits == []

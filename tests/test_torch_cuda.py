@@ -857,3 +857,107 @@ def test_cuda_farm_of_two_workers_matches_single_process(cuda, tmp_path):
         == [str(cuda)] * 2
     assert [rep["kernel_launches"][k]["ssa_window"] for k in range(2)] \
         == [6, 6]
+
+
+def _lm_pair(cfg, cuda):
+    """The same seeded weights in a CPU model and a card model."""
+    from repro_torch.models import build_model
+
+    host = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(1))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(host.state_dict())
+    return host, card
+
+
+def _lm_batch(cfg, rng, b=2, s=32):
+    p = cfg.frontend_tokens if cfg.frontend != "none" else 0
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s - p))}
+    if p:
+        batch["embeds"] = rng.standard_normal((b, p, cfg.d_model)).astype(
+            np.float32)
+    return batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama3-8b", "gemma-7b", "command-r-35b",
+                                  "starcoder2-7b", "internvl2-1b"])
+def test_cuda_lm_serving_path_matches_cpu(cuda, name):
+    """The LM skeleton at its smoke size in float32 on the card against
+    the CPU with the same weights: forward, prefill (cache and last
+    logits) and a decode step, at tests/test_torch_models.py's 2e-4."""
+    from repro_torch.configs.registry import get_smoke_config
+
+    cfg = get_smoke_config(name)
+    host, card = _lm_pair(cfg, cuda)
+    rng = np.random.default_rng(2)
+    batch = _lm_batch(cfg, rng)
+    tol = dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(card.forward(batch)[0].cpu().numpy(),
+                               host.forward(batch)[0].numpy(), **tol)
+    (c_card, l_card), (c_host, l_host) = (m.prefill(batch, cache_len=36)
+                                          for m in (card, host))
+    np.testing.assert_allclose(l_card.cpu().numpy(), l_host.numpy(), **tol)
+    for layer in c_host["stack"]:
+        for kv in ("k", "v"):
+            np.testing.assert_allclose(
+                c_card["stack"][layer][kv].cpu().numpy(),
+                c_host["stack"][layer][kv].numpy(), **tol)
+    token = rng.integers(0, cfg.vocab_size, (2, 1))
+    pos = np.full((2,), 32)
+    np.testing.assert_allclose(
+        card.decode_step(c_card, token, pos)[0].cpu().numpy(),
+        host.decode_step(c_host, token, pos)[0].numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_bf16_tied_logits_are_float32(cuda):
+    """bf16 with tied embeddings: the card's logits come from one
+    float32-output product of the transposed table, the CPU's from the
+    upcast operands; both float32, within 2^-5 of the largest logit."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config("gemma-7b"), dtype="bfloat16")
+    host, card = _lm_pair(cfg, cuda)
+    batch = _lm_batch(cfg, np.random.default_rng(3))
+    a = card.forward(batch)[0][..., :cfg.vocab_size]
+    b = host.forward(batch)[0][..., :cfg.vocab_size]
+    assert a.dtype == b.dtype == torch.float32
+    assert float((a.cpu() - b).abs().max()) <= 2 ** -5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_quickstart_example_kernel_path_bitwise(cuda, tmp_path,
+                                                     monkeypatch):
+    """examples/torch_quickstart.py on the card, as written and with the
+    window kernel: the same pool and record means, bit for bit."""
+    import runpy
+    from pathlib import Path
+
+    monkeypatch.chdir(tmp_path)
+    main = runpy.run_path(str(Path(__file__).resolve().parents[1] / "examples"
+                              / "torch_quickstart.py"))["main"]
+    plain = main(device=cuda)
+    tks.ssa_window_call.launches = 0
+    fused = main(device=cuda, use_kernel=True)
+    assert tks.ssa_window_call.launches >= len(fused.records) == 20
+    assert plain.means().tobytes() == fused.means().tobytes()
+    for f in tg.LaneState._fields:
+        assert torch.equal(getattr(plain._engine._pool, f),
+                           getattr(fused._engine._pool, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lv2", "ecoli"])
+def test_cuda_run_reference_trajectory_matches_cpu(cuda, name):
+    """One lane through `advance_to` on the card: the CPU's populations,
+    bit for bit (the dense exact SSA's plain ops give the same bits on
+    both)."""
+    system = compile_model(MODELS[name]())[0]
+    grid = np.linspace(0.25, 2.5, 10)
+    card = tg.run_reference_trajectory(system, grid, seed=3, device=cuda)
+    host = tg.run_reference_trajectory(system, grid, seed=3, device="cpu")
+    assert card.device.type == "cuda"
+    assert torch.equal(card.cpu(), host)
