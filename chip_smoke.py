@@ -164,12 +164,35 @@ Phases (each prints its own lines; any failure exits non-zero):
              layer-0 attention against full attention, each within its
              stated bound; prefill ms and tokens/s, decode ms a step,
              each beside its bound, and the peak memory.
-9b. llm parity — each dense and VLM config at its smoke size in
-             float32, the same weights on the card and the CPU: forward,
-             prefill (cache, last logits) and a decode step within
-             rtol = atol = 2e-4; gemma's smoke size in bf16 (tied
+9b. llm parity — each dense, VLM and MoE config at its smoke size in
+             float32, the same weights on the card and the CPU: the MoE
+             configs' expert ids first (equal in every layer), then
+             forward, prefill (cache, last logits) and a decode step
+             within rtol = atol = 2e-4; gemma's smoke size in bf16 (tied
              embeddings) within 2^-5 of the largest logit.
-10. report — one JSON line of per-kernel numbers (launches: the main
+10. moe    — olmoe-1b-7b, then deepseek-moe-16b (the first freed
+             before the second is built), at full width from seeded
+             weights with phase 9's requests: one MoE layer through
+             apply_moe against moe_dense_oracle at a capacity where
+             nothing drops; prefill timed and rerun bit for bit, the
+             share of routed entries dropped and the aux loss layer by
+             layer; 32 greedy decode steps; layer 0's decoded K/V at full
+             depth and decode against forward on the config cut to 2
+             layers (expert ids compared); prefill ms and tokens/s
+             against 2 x the parameters a token runs (the experts at E x
+             capacity slots) at the bf16 peak, decode ms against all
+             weights and against the routed experts' alone at 3.35 TB/s,
+             and the peak memory.
+11. train  — olmoe-1b-7b at full width cut to 4 of its 16 layers: 10
+             AdamW steps of synth_batch 8 x 1024 at grad_accum 2 over 4
+             repeated batches (the loss must fall), step ms and tokens/s
+             against 6 x active parameters x tokens at the bf16 peak,
+             the peak memory; the trained state saved and restored
+             through the pytree store (bitwise, with the times and the
+             size); accum 2 against accum 1 on one batch; the crash
+             drill of tests/test_train.py on the olmoe smoke config.
+             Prints the two phases' total.
+12. report — one JSON line of per-kernel numbers (launches: the main
              paths', phase 6's counted sharded runs', the workers' of
              7a and 7b and phase 8's use_kernel=True runs, each from its
              own counter), the card line, then the result line.
@@ -2135,6 +2158,30 @@ def timed_simulate(exp, device):
     return res, time.perf_counter() - t0
 
 
+def fault_events(rep) -> str:
+    """A farm report's faults by kind and each fault event's worker,
+    window and error, for a gate's message."""
+    faults = [(e["kind"], e["worker"], e["window"], e["error"])
+              for e in rep["events"] if e["event"] == "fault"]
+    return f"{rep['faults_by_kind']}: {faults}"
+
+
+def quiet_spans(rep) -> list:
+    """Each worker's span from its last heartbeat to the coordinator's
+    poll that saw it exit (its bundle's write and its exit), s."""
+    return [e["quiet_s"] for e in rep["events"]
+            if e["event"] == "worker_done"]
+
+
+def heartbeat_spans(rep) -> list:
+    """Each worker's longest span between two heartbeat writes while
+    running and its longest write, s (the staleness limit is 3 x
+    FARM_HEARTBEAT_S)."""
+    return [(round(h["max_gap_s"].get("run", 0.0), 3),
+             round(h["max_write_s"], 4))
+            for _, h in sorted(rep["heartbeats"].items())]
+
+
 def farm_launches(res, n_blocks, label, device) -> int:
     """Check a farm run's workers: each launched the window kernel once
     per window (its own counter, in its bundle; set to 0 by the fresh
@@ -2216,7 +2263,7 @@ def phase_farm(device, ref_recs, tol, card) -> int:
             raise AssertionError("7a: the farm's records differ from 6a's")
         if rep["restarts"] or rep["faults_by_kind"]:
             raise AssertionError(f"7a: a fault-free farm restarted "
-                                 f"({rep['faults_by_kind']})")
+                                 f"({fault_events(rep)})")
         if sorted({w["device"] for w in rep["per_worker"].values()}) \
                 != [str(device)]:
             raise AssertionError(f"7a: workers ran on {rep['per_worker']}")
@@ -2237,7 +2284,11 @@ def phase_farm(device, ref_recs, tol, card) -> int:
             f"{[round(rep['worker_walls'][k], 3) for k in range(FARM_WORKERS)]}"
             f" s, start-up {[round(x, 3) for x in startup]} s (of which "
             f"the interpreter and imports, then the spec and the CUDA "
-            f"context: {phases} s); merge "
+            f"context: {phases} s); each worker's longest span between "
+            f"heartbeats while running and longest heartbeat write "
+            f"{heartbeat_spans(rep)} s (limit {3 * FARM_HEARTBEAT_S} s); "
+            f"from each worker's last heartbeat to the poll that saw it "
+            f"exit {quiet_spans(rep)} s; merge "
             f"{rep['merge_s'] * 1e3:.3f} ms; {card}")
 
         # 7b: phase 5a's steered, sketched sweep at FARM_WORKERS workers
@@ -2260,8 +2311,10 @@ def phase_farm(device, ref_recs, tol, card) -> int:
                                  "single-process run")
         if not rep_b["stopped_points"]:
             raise AssertionError("7b: no point stopped")
-        if s_farm.recovery_report()["restarts"]:
-            raise AssertionError("7b: a fault-free farm restarted")
+        rep_fb = s_farm.recovery_report()
+        if rep_fb["restarts"] or rep_fb["faults_by_kind"]:
+            raise AssertionError(f"7b: a fault-free farm restarted "
+                                 f"({fault_events(rep_fb)})")
         launches += farm_launches(s_farm, MAIN_WINDOWS // 4, "7b", device)
         log(f"[farm] 7b the steered, sketched sweep of 5a ({len(STEER_VALUES)}"
             f" points, PER_POINT, window_block 4, tolerance {tol:.6g}, "
@@ -2270,8 +2323,10 @@ def phase_farm(device, ref_recs, tol, card) -> int:
             f"single-process run's (stopped {rep_b['stopped_points']} at "
             f"{rep_b['stop_windows']}); one host sync per block in every "
             f"worker; wall {s_farm_s:.3f} s against {s_single_s:.3f} s; "
-            f"merge {s_farm.recovery_report()['merge_s'] * 1e3:.3f} ms; "
-            f"{card}")
+            f"heartbeat spans while running and writes "
+            f"{heartbeat_spans(rep_fb)} s; from each worker's last "
+            f"heartbeat to its exit {quiet_spans(rep_fb)} s; merge "
+            f"{rep_fb['merge_s'] * 1e3:.3f} ms; {card}")
 
         # 7c: the process drills on 7a's cell
         drills = (("kill", {2: "host_lost"}, {}),
@@ -2374,6 +2429,114 @@ LLM_DENSE = ("llama3-8b", "gemma-7b", "command-r-35b", "starcoder2-7b",
              "internvl2-1b")
 LLM_F32_TOL = 2e-4  # rtol and atol, as tests/test_torch_models.py
 LLM_BF16_TOL = 2 ** -5  # max |difference| over max |logit|
+MOE_ARCHS = ("olmoe-1b-7b", "deepseek-moe-16b")
+# phase 10: the mixture-of-experts configs serving at full width, with
+# phase 9's requests. One MoE layer through apply_moe against
+# moe_dense_oracle at a capacity where nothing drops: the two products
+# accumulate in float32 and round the layer's output to bf16 once, in
+# other orders, so they may differ by a bf16 rounding of the output:
+# max |diff| over max |y| within MOE_LAYER_TOL.
+MOE_LAYER_TOL = 2 ** -7
+# phase 11: the one-card trainer on olmoe-1b-7b at full width, cut to
+# TRAIN_LAYERS of its 16 layers (the full model's state does not fit one
+# card), synth_batch TRAIN_BATCH x TRAIN_SEQ at the registry's
+# grad_accum, TRAIN_STEPS steps over TRAIN_DATA repeated batches
+TRAIN_ARCH = "olmoe-1b-7b"
+TRAIN_LAYERS = 4
+TRAIN_BATCH = 8
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 10
+TRAIN_DATA = 4
+TRAIN_LR = 1e-3
+TRAIN_WARMUP = 2
+# accum 2 against accum 1 on one batch, in float32 without the
+# per-microbatch aux loss and drops: the parameters after one step
+# within tests/test_train.py's 2e-5 (bf16 gradients near zero change
+# sign between the two, and Adam's first step moves each entry by about
+# lr·sign(g), so a bf16 comparison would measure rounding, not the
+# accumulation)
+TRAIN_ACCUM_ATOL = 2e-5
+# ...on the config cut to TRAIN_ACCUM_LAYERS layers: in float32 the
+# 4-layer state, a copy of its params and two microbatches' float32
+# activations do not fit the card
+TRAIN_ACCUM_LAYERS = 2
+# the crash drill (tests/test_train.py's case on the olmoe smoke config,
+# float32, on the card): losses within its rtol and atol
+DRILL_RTOL, DRILL_ATOL = 1e-4, 1e-5
+
+
+class MoeProbe:
+    """Records each routed MoE call in order while it is open: the kept
+    share of the dispatch, the aux loss, and the router's (probs, expert
+    ids), by wrapping `models.moe._dispatch`, `_aux_loss` and `route`,
+    which `moe_routed_local` looks up at each call. Appends only: no
+    host sync."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.keep, self.aux, self.routes = [], [], []
+        self._saved = dispatch, aux_loss, route = (
+            moe._dispatch, moe._aux_loss, moe.route)
+
+        def rec_dispatch(*args, **kw):
+            out = dispatch(*args, **kw)
+            self.keep.append(out[3].float().mean())
+            return out
+
+        def rec_aux(probs, ids, cfg):
+            a = aux_loss(probs, ids, cfg)
+            self.aux.append(a)
+            return a
+
+        def rec_route(params, x, cfg):
+            out = route(params, x, cfg)
+            self.routes.append((out[0], out[2]))
+            return out
+
+        moe._dispatch, moe._aux_loss, moe.route = (rec_dispatch, rec_aux,
+                                                   rec_route)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._dispatch, moe._aux_loss, moe.route = self._saved
+
+
+def route_margin(probs, k):
+    """Per token: the k-th largest router probability less the
+    (k+1)-th (how near the top-k choice is to a tie)."""
+    import torch
+
+    top = torch.topk(probs.float(), k + 1, dim=-1).values
+    return top[..., k - 1] - top[..., k]
+
+
+def compare_routes(a, b, k, rows=None) -> tuple[int, float]:
+    """(differing expert ids, the smallest margin among the tokens that
+    differ, else -1) of two probes' routes, layer by layer; `rows`
+    picks b's rows that a's rows stand for."""
+    n, worst = 0, -1.0
+    for (pa, ia), (pb, ib) in zip(a.routes, b.routes):
+        ib_sel = ib if rows is None else ib[rows]
+        bad = (ia.cpu() != ib_sel.cpu()).any(dim=-1)
+        if bool(bad.any()):
+            n += int(bad.sum())
+            m = float(route_margin(pa.cpu(), k)[bad].min())
+            worst = m if worst < 0 else min(worst, m)
+    return n, worst
+
+
+def layer_kvs(cache, kv) -> list:
+    """The cache's `kv` leaf of every layer, in layer order."""
+    out = [c[kv] for c in cache["prefix"]]
+    stack = cache.get("stack", {})
+    n_rep = next(iter(stack.values()))[kv].shape[0] if stack else 0
+    for r in range(n_rep):
+        out.extend(stack[name][kv][r]
+                   for name in sorted(stack, key=lambda n: int(n[1:])))
+    return out
 
 
 def max_ulp(a, b) -> int:
@@ -2722,12 +2885,466 @@ def phase_llm(device, card) -> None:
     torch.cuda.empty_cache()
 
 
+def moe_serve(arch, device, card) -> None:
+    """One MoE config of phase 10 at full width: init, one MoE layer
+    against the dense oracle, prefill (timed, rerun bitwise, drops and
+    aux by layer), 32 greedy decode steps, layer 0's K/V at full depth
+    and decode against forward on the config cut to LLM_CHECK_LAYERS
+    layers, each beside its bound, and the peak memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import FFN_MOE
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.blocks import layer_groups
+    from repro_torch.models.moe import _capacity, apply_moe, moe_dense_oracle
+    from repro_torch.models.norms import apply_norm
+
+    cfg = get_config(arch)
+    e, k = cfg.n_experts, cfg.n_experts_per_token
+    f = cfg.moe_d_ff or cfg.d_ff
+    nodrop = dataclasses.replace(cfg, capacity_factor=e / k + 1)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LLM_SEED)
+    model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    named = dict(model.named_parameters())
+    n_params = sum(t.numel() for t in named.values())
+    w_bytes = sum(t.numel() * t.element_size() for t in named.values())
+    expert_bytes = sum(t.numel() * t.element_size()
+                       for n, t in named.items() if ".ffn.w_" in n
+                       and t.ndim == (4 if ".stack." in n else 3))
+    groups = layer_groups(model.specs)
+    n_moe = sum(sp.ffn == FFN_MOE for sp in model.specs)
+    log(f"[moe] 10 {arch}: {cfg.n_layers} layers ({len(groups.prefix)} "
+        f"prefix + {len(groups.pattern)} x {groups.n_repeat} stacked), "
+        f"d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, {e} experts top-{k}, "
+        f"{cfg.n_shared_experts} shared, expert d_ff {f}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}: {n_params:,} parameters "
+        f"({cfg.active_param_count():,} active a token), "
+        f"{w_bytes / 1e9:.3f} GB, initialised from torch.Generator seed "
+        f"{LLM_SEED} on the card in {init_s:.2f} s (peak {init_peak:.3f} "
+        f"GB: the weights and one leaf's float32 draw)")
+
+    b, p = LLM_BATCH, LLM_PROMPT
+    prompts = torch.randint(0, cfg.vocab_size, (b, p + 1), generator=gen,
+                            device=device)
+    batch = {"tokens": prompts[:, :p]}
+
+    # one MoE layer at full width against the dense oracle, no drops
+    params = model.params()
+    j = next(i for i, sp in enumerate(groups.pattern) if sp.ffn == FFN_MOE)
+    layer = _stack_slice(params["blocks"]["stack"][f"l{j}"], 0)
+    with torch.no_grad():
+        h = apply_norm(layer["norm2"], params["embed"][prompts[:, :p]],
+                       cfg.norm)
+        with MoeProbe() as probe:
+            y, aux = apply_moe(layer["ffn"], h, nodrop)
+        y_ref, aux_ref = moe_dense_oracle(layer["ffn"], h, nodrop)
+        kept = float(probe.keep[0])
+        rel = float((y.float() - y_ref.float()).abs().max()
+                    / y_ref.float().abs().max())
+        moe_ms = cuda_ms(lambda: apply_moe(layer["ffn"], h, nodrop))
+        oracle_ms = cuda_ms(lambda: moe_dense_oracle(layer["ffn"], h,
+                                                     nodrop))
+    log(f"[moe] 10 {arch} one MoE layer ({b * p} tokens, capacity "
+        f"{_capacity(nodrop, b * p)} a expert: kept {kept:.4f}) through "
+        f"apply_moe {moe_ms:.3f} ms against moe_dense_oracle "
+        f"{oracle_ms:.3f} ms: max |diff| over max |y| {rel:.4g} (bound "
+        f"{MOE_LAYER_TOL:.4g}); aux {float(aux):.6f} and "
+        f"{float(aux_ref):.6f}, bitwise {bool(torch.equal(aux, aux_ref))}")
+    if not (kept == 1.0 and rel <= MOE_LAYER_TOL):
+        raise AssertionError(f"10 {arch}: apply_moe disagrees with the "
+                             "dense oracle")
+    del y, y_ref, h, layer
+
+    model.prefill(batch, cache_len=LLM_CACHE)  # warm-up
+    out = [None]
+
+    def prefill():
+        out[0] = model.prefill(batch, cache_len=LLM_CACHE)
+
+    pre_ms = cuda_ms(prefill)
+    cache, last = out[0]
+    cache2, last2 = model.prefill(batch, cache_len=LLM_CACHE)
+    same = torch.equal(last, last2) and all(
+        torch.equal(a, c) for kv in ("k", "v")
+        for a, c in zip(layer_kvs(cache, kv), layer_kvs(cache2, kv)))
+    del cache2, last2
+    if not same:
+        raise AssertionError(f"10 {arch}: a rerun of prefill differs")
+    with MoeProbe() as probe:
+        model.prefill(batch, cache_len=LLM_CACHE)
+    drops = [round(1 - float(x), 4) for x in probe.keep]
+    auxes = [round(float(x), 4) for x in probe.aux]
+    log(f"[moe] 10 {arch} prefill {b} x {p}: a rerun bitwise equal (logits "
+        f"and cache); capacity {_capacity(cfg, b * p)} a expert (factor "
+        f"{cfg.capacity_factor}); share of routed entries dropped, layer by "
+        f"layer: {drops}; aux by layer: {auxes}")
+
+    token = prompts[:, p:p + 1]
+    step_ms, step_logits, routed = [], [], []
+    for i in range(LLM_DECODE):
+        pos = torch.full((b,), p + i, dtype=torch.long, device=device)
+
+        def step():
+            out[0] = model.decode_step(cache, token, pos)
+
+        if i == 0:
+            with MoeProbe() as probe:
+                step_ms.append(cuda_ms(step))
+            routed = [int(ids.unique().numel()) for _, ids in probe.routes]
+        else:
+            step_ms.append(cuda_ms(step))
+        logits, cache = out[0]
+        step_logits.append(logits)
+        token = logits[:, :, :cfg.vocab_size].argmax(dim=-1)
+    logits = torch.cat(step_logits, dim=1)
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(last).all())):
+        raise AssertionError(f"10 {arch}: a prefill or decode logit is not "
+                             "finite")
+    full, fcache, _ = model.forward({"tokens": prompts}, mode="prefill")
+    v = cfg.vocab_size
+    spread, agree = logits_spread(logits[:, 0, :v], full[:, p, :v])
+    growth = []
+    for kv in ("k", "v"):
+        growth.append([float((a[:, p].float() - r[:, p].float()).abs().max()
+                             / r[:, p].float().abs().max())
+                       for a, r in zip(layer_kvs(cache, kv),
+                                       layer_kvs(fcache, kv))])
+    growth = [max(a, c) for a, c in zip(*growth)]
+    log(f"[moe] 10 {arch} first decode step against forward on the {p + 1} "
+        f"tokens at full depth: max |diff| over max |logit| {spread:.4g}, "
+        f"argmax equal on {agree:.2f} of the rows (chaotic depth, and "
+        f"forward drops other entries than prefill: printed, not gated); "
+        f"the decoded position's K/V against forward's, layer by layer: "
+        f"{[f'{g:.3g}' for g in growth]} (layer 0 bound "
+        f"{LLM_LAYER0_TOL:.4g})")
+    if not growth[0] <= LLM_LAYER0_TOL:
+        raise AssertionError(f"10 {arch}: layer 0's decoded K/V disagree "
+                             "with forward's")
+    del full, fcache
+    cut, flips, margin = moe_decode_against_forward(
+        dataclasses.replace(nodrop, n_layers=LLM_CHECK_LAYERS), device)
+    log(f"[moe] 10 {arch} cut to {LLM_CHECK_LAYERS} layers, capacity factor "
+        f"{nodrop.capacity_factor:.4g} (nothing drops): first decode step "
+        f"against forward, expert ids differing on {flips} token-layers "
+        f"(smallest top-k margin among them {margin:.3g}), max |diff| over "
+        f"max |logit| {cut:.4g} (bound {LLM_DECODE_TOL})")
+    if not cut <= LLM_DECODE_TOL:
+        raise AssertionError(f"10 {arch}: decode disagrees with forward")
+
+    tokens = b * p
+    per_expert = 3 * cfg.d_model * f
+    cap = _capacity(cfg, tokens)
+    pre_ops = (2 * tokens * (cfg.active_param_count() - n_moe * k * per_expert)
+               + n_moe * 2 * per_expert * e * cap)
+    pre_bound = pre_ops / PEAK_BF16_OPS * 1e3
+    kv_bytes = sum(t.numel() * t.element_size() for kv in ("k", "v")
+                   for t in layer_kvs(cache, kv))
+    one_expert = expert_bytes // (n_moe * e)
+    routed_bytes = w_bytes - expert_bytes + sum(routed) * one_expert
+    dec_all = (w_bytes + kv_bytes) / PEAK_BYTES_S * 1e3
+    dec_routed = (routed_bytes + kv_bytes) / PEAK_BYTES_S * 1e3
+    dec = step_ms[1:]
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    log(f"[moe] 10 {arch} prefill {b} x {p} tokens: {pre_ms:.3f} ms, "
+        f"{tokens / (pre_ms / 1e3):.5g} tokens/s; bound {pre_bound:.3f} ms "
+        f"(2 x {pre_ops / 2 / tokens:.4g} parameters a token, the experts "
+        f"at {e} x {cap} slots, at {PEAK_BF16_OPS / 1e12:g} TFLOP/s bf16), "
+        f"{pre_bound / pre_ms:.3f} of it")
+    log(f"[moe] 10 {arch} decode {LLM_DECODE} greedy steps at batch {b}: "
+        f"first {step_ms[0]:.3f} ms, then mean {np.mean(dec):.3f} ms (min "
+        f"{min(dec):.3f}, max {max(dec):.3f}); bounds at "
+        f"{PEAK_BYTES_S / 1e12:g} TB/s: all weights and the KV cache "
+        f"{dec_all:.3f} ms ({dec_all / np.mean(dec):.3f} of it), the routed "
+        f"experts alone ({routed} of {e} experts by layer at the first "
+        f"step) {dec_routed:.3f} ms; {b * 1e3 / np.mean(dec):.5g} tokens/s")
+    log(f"[moe] 10 {arch} peak memory (torch.cuda.max_memory_allocated) "
+        f"{peak_gb:.3f} GB; {card}")
+    if not peak_gb < 80:
+        raise AssertionError(f"10 {arch}: peak memory {peak_gb:.1f} GB")
+    del model, params, cache, out, logits, step_logits, named
+    torch.cuda.empty_cache()
+
+
+def moe_decode_against_forward(cfg, device) -> tuple[float, int, float]:
+    """decode_against_forward for a MoE config, with the expert ids of
+    the decoded token compared against forward's at its position:
+    (max |diff| over max |logit|, differing token-layers, the smallest
+    margin among them or -1)."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LLM_SEED)
+    model = build_model(cfg, device=device).init(gen)
+    b, p, v = LLM_BATCH, LLM_PROMPT, cfg.vocab_size
+    prompts = torch.randint(0, v, (b, p + 1), generator=gen, device=device)
+    cache, _ = model.prefill({"tokens": prompts[:, :p]}, cache_len=LLM_CACHE)
+    with MoeProbe() as dec:
+        step, _ = model.decode_step(cache, prompts[:, p:],
+                                    torch.full((b,), p, device=device))
+    with MoeProbe() as fwd:
+        full, _, _ = model.forward({"tokens": prompts})
+    rows = torch.arange(b) * (p + 1) + p
+    flips, margin = compare_routes(dec, fwd, cfg.n_experts_per_token, rows)
+    return logits_spread(step[:, 0, :v], full[:, p, :v])[0], flips, margin
+
+
+def phase_moe(device, card) -> None:
+    """Phase 10: olmoe-1b-7b, then deepseek-moe-16b, at full width (the
+    first freed before the second is built)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    for arch in MOE_ARCHS:
+        moe_serve(arch, device, card)
+
+
+def train_accum_check(cfg, ocfg, scfg, batch, device) -> str:
+    """accum 2 against accum 1 on one batch from one initial state, on
+    `cfg` in float32 with router_aux_loss 0 and a capacity where nothing
+    drops (the aux loss and the drops are per-microbatch statistics, so
+    with either the two steps optimise different objectives): the
+    parameters after one step within TRAIN_ACCUM_ATOL."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    check = dataclasses.replace(
+        cfg, dtype="float32", router_aux_loss=0.0,
+        capacity_factor=cfg.n_experts / cfg.n_experts_per_token + 1,
+        n_layers=TRAIN_ACCUM_LAYERS)
+    model = build_model(check, device=device)
+
+    def one_step(accum):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(LLM_SEED)
+        state = init_train_state(model, gen, ocfg)
+        step = make_train_step(model, ocfg, dataclasses.replace(
+            scfg, grad_accum=accum))
+        state, metrics = step(state, batch)
+        return state, float(metrics["grad_norm"])
+
+    state, norm2 = one_step(2)
+    after2 = [t.clone() for t in tree_leaves(state["params"])]
+    del state
+    state, norm1 = one_step(1)
+    worst = max(float((a - c).abs().max())
+                for a, c in zip(tree_leaves(state["params"]), after2))
+    n = sum(t.numel() for t in after2)
+    del state, after2, model
+    torch.cuda.empty_cache()
+    msg = (f"accum 2 against accum 1 on one batch ({check.n_layers} "
+           f"layers, float32, router_aux_loss 0, capacity factor "
+           f"{check.capacity_factor:.4g}: nothing drops): grad norm {norm2:.6g} and {norm1:.6g}; the {n:,} "
+           f"parameters after one step, max |diff| {worst:.3g} (bound "
+           f"{TRAIN_ACCUM_ATOL})")
+    if not worst <= TRAIN_ACCUM_ATOL:
+        raise AssertionError(f"11: {msg}")
+    return msg
+
+
+def train_drill(device) -> str:
+    """tests/test_train.py's crash drill on the olmoe smoke config in
+    float32 on the card: a clean run of 8 steps, a second clean run,
+    and a run crashed at steps 3 and 6 through the pytree store."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.ckpt import store
+    from repro_torch.configs.base import OptimizerConfig, ShardingConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.fault import FailurePlan
+    from repro_torch.train.drill import run_train_with_failures
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_smoke_config(TRAIN_ARCH)
+    model = build_model(cfg, device=device)
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=5, total_steps=12)
+    step = make_train_step(model, ocfg, ShardingConfig(strategy="dp_tp",
+                                                       grad_accum=1))
+    batches = [synth_batch(cfg, 4, 32, i) for i in range(8)]
+
+    def make_state():
+        gen = torch.Generator(device=device)
+        gen.manual_seed(LLM_SEED)
+        return init_train_state(model, gen, ocfg)
+
+    def clean_run():
+        state = make_state()
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        return losses
+
+    clean, again = clean_run(), clean_run()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drill_")
+    try:
+        def restore_fn():
+            s = store.latest_step(tmp)
+            return store.restore(make_state(), tmp, s), s
+
+        _, crashy, events = run_train_with_failures(
+            make_state, step, batches, tmp,
+            FailurePlan(schedule={3: "crash", 6: "crash"}),
+            lambda st, i: store.save(st, tmp, i), restore_fn, ckpt_every=2)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel = float(np.max(np.abs(np.subtract(crashy, clean))
+                       / np.abs(clean)))
+    msg = (f"crash drill ({cfg.name}, float32, 8 steps of 4 x 32, crashes "
+           f"at steps 3 and 6, a save every 2 steps through the pytree "
+           f"store): {len(events)} restores, losses {np.round(clean, 5)}; "
+           f"the crashed run's against the clean run's max relative diff "
+           f"{rel:.3g} (rtol {DRILL_RTOL}, atol {DRILL_ATOL}), bitwise "
+           f"{crashy == clean}; a second clean run bitwise {again == clean} "
+           f"(torch.use_deterministic_algorithms is off: the tolerance, not "
+           f"a forced order, carries the gradients' scatters)")
+    if not (len(events) == 2 and np.allclose(crashy, clean, rtol=DRILL_RTOL,
+                                             atol=DRILL_ATOL)):
+        raise AssertionError(f"11: {msg}")
+    return msg
+
+
+def phase_train(device, card) -> None:
+    """Phase 11: the one-card trainer on olmoe-1b-7b at full width cut
+    to TRAIN_LAYERS layers: TRAIN_STEPS steps of synth_batch TRAIN_BATCH
+    x TRAIN_SEQ at the registry's grad_accum over TRAIN_DATA repeated
+    batches (the loss must fall), a save and a restore of the trained
+    state through the pytree store (bitwise), accum 2 against accum 1,
+    and the crash drill."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.ckpt import store
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.configs.registry import default_sharding, get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    scfg = default_sharding(TRAIN_ARCH)
+    ocfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    model = build_model(cfg, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LLM_SEED)
+    state = init_train_state(model, gen, ocfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(state)) / 1e9
+    log(f"[train] 11 {TRAIN_ARCH} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.n_experts_per_token}, expert "
+        f"d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}) cut "
+        f"from {full.n_layers} to {cfg.n_layers} layers: {n_params:,} "
+        f"parameters, state {state_gb:.3f} GB (bf16 params, float32 master, "
+        f"mu, nu; the full model's {full.param_count():,} parameters would "
+        f"need about {full.param_count() * 16 / 1e9:.0f} GB with float32 "
+        f"gradients), initialised in {init_s:.2f} s; grad_accum "
+        f"{scfg.grad_accum}, AdamW lr {TRAIN_LR}, warm-up {TRAIN_WARMUP}")
+
+    batches = [synth_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, i)
+               for i in range(TRAIN_DATA)]
+    step = make_train_step(model, ocfg, scfg)
+    out = [None]
+    losses, ms = [], []
+    for i in range(TRAIN_STEPS):
+        def run():
+            out[0] = step(state, batches[i % TRAIN_DATA])
+
+        ms.append(cuda_ms(run))
+        state, metrics = out[0]
+        losses.append(float(metrics["loss"]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = float(np.mean(ms[1:]))
+    bound = 6 * cfg.active_param_count() * tokens / PEAK_BF16_OPS * 1e3
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    log(f"[train] 11 {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"over {TRAIN_DATA} repeated batches: loss by step "
+        f"{[round(x, 4) for x in losses]}; first step {ms[0]:.1f} ms, then "
+        f"mean {step_ms:.1f} ms (min {min(ms[1:]):.1f}, max "
+        f"{max(ms[1:]):.1f}), {tokens / (step_ms / 1e3):.5g} tokens/s; "
+        f"bound {bound:.3f} ms (6 x {cfg.active_param_count():,} active "
+        f"parameters x {tokens} tokens at {PEAK_BF16_OPS / 1e12:g} TFLOP/s "
+        f"bf16), {bound / step_ms:.3f} of it; peak memory {peak_gb:.3f} GB")
+    # the loss falls: on the last step, and over the last TRAIN_DATA
+    # steps (the same batches) against the first TRAIN_DATA
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and np.mean(losses[-TRAIN_DATA:]) < np.mean(
+                losses[:TRAIN_DATA])):
+        raise AssertionError("11: the loss does not fall")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = store.save(state, tmp, TRAIN_STEPS)
+        save_s = time.perf_counter() - t0
+        size_gb = os.path.getsize(os.path.join(path, "arrays.npz")) / 1e9
+        t0 = time.perf_counter()
+        back = store.restore(state, tmp)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a, c) for a, c in zip(tree_leaves(back),
+                                                     tree_leaves(state)))
+        del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[train] 11 the trained state through the pytree store: save "
+        f"{save_s:.2f} s, {size_gb:.3f} GB, restore {restore_s:.2f} s "
+        f"(sha256 verified), every leaf bitwise {same}")
+    if not same:
+        raise AssertionError("11: the restored state differs")
+    del state, out, metrics, model
+    torch.cuda.empty_cache()
+    log(f"[train] 11 {train_accum_check(cfg, ocfg, scfg, batches[0], device)}")
+    log(f"[train] 11 {train_drill(device)}; {card}")
+
+
 def phase_llm_parity(device) -> None:
-    """Phase 9b: each dense and VLM config at its smoke size, float32,
-    the same weights on the card and on the CPU: forward, prefill (cache
-    and last logits) and one decode step agree within LLM_F32_TOL; and
-    gemma's smoke size in bf16 (tied embeddings: the card's float32-
-    output product of the transposed table) within LLM_BF16_TOL."""
+    """Phase 9b: each dense, VLM and MoE config at its smoke size,
+    float32, the same weights on the card and on the CPU: the MoE
+    configs' expert ids first (every layer's top-k, equal), then
+    forward, prefill (cache and last logits) and one decode step agree
+    within LLM_F32_TOL; and gemma's smoke size in bf16 (tied embeddings:
+    the card's float32-output product of the transposed table) within
+    LLM_BF16_TOL."""
     import dataclasses
 
     import numpy as np
@@ -2744,7 +3361,7 @@ def phase_llm_parity(device) -> None:
                                  f"beyond rtol = atol = {tol}")
         return float((a - b).abs().max())
 
-    cases = [(n, get_smoke_config(n)) for n in LLM_DENSE]
+    cases = [(n, get_smoke_config(n)) for n in LLM_DENSE + MOE_ARCHS]
     cases.append(("gemma-7b bf16", dataclasses.replace(
         get_smoke_config("gemma-7b"), dtype="bfloat16")))
     for label, cfg in cases:
@@ -2759,8 +3376,21 @@ def phase_llm_parity(device) -> None:
             batch["embeds"] = rng.standard_normal(
                 (2, n_pre, cfg.d_model)).astype(np.float32)
         v = cfg.vocab_size
-        f_dev = dev.forward(batch)[0][..., :v]
-        f_host = host.forward(batch)[0][..., :v]
+        with MoeProbe() as r_dev:
+            f_dev = dev.forward(batch)[0][..., :v]
+        with MoeProbe() as r_host:
+            f_host = host.forward(batch)[0][..., :v]
+        if cfg.n_experts:
+            flips, margin = compare_routes(r_dev, r_host,
+                                           cfg.n_experts_per_token)
+            log(f"[llm] 9b {label}: expert ids of {len(r_dev.routes)} MoE "
+                f"layers x {r_dev.routes[0][1].shape[0]} tokens, card "
+                f"against CPU: {flips} tokens differ (smallest top-k margin "
+                f"among them {margin:.3g}); aux {float(sum(r_dev.aux)):.6f} "
+                f"against {float(sum(r_host.aux)):.6f}")
+            if flips:
+                raise AssertionError(f"9b {label}: the card routes tokens "
+                                     "to other experts than the CPU")
         if cfg.dtype == "bfloat16":
             rel = float((f_dev.cpu() - f_host).abs().max()
                         / f_host.abs().max())
@@ -2826,6 +3456,11 @@ def main() -> int:
     shard_launches["ssa_window"] += phase_examples(device, card)
     phase_llm(device, card)
     phase_llm_parity(device)
+    t_lm = time.perf_counter()
+    phase_moe(device, card)
+    phase_train(device, card)
+    log(f"[moe+train] phases 10 and 11 took "
+        f"{time.perf_counter() - t_lm:.1f} s")
     entries = [
         ("ssa_window", "ssa_window.cu", "src/repro/kernels/ssa_step.py:64",
          dense),

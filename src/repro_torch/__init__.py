@@ -20,7 +20,8 @@ Layout (each module names the reference module it ports):
   core/dispatch.py    window bodies (unfused and fused-kernel), the
                       fused, sharded and host-loop strategies
   core/engine.py      SimConfig and SimulationEngine
-  ckpt/               the single-file checkpoint store
+  ckpt/               the single-file engine store and the trainer's
+                      pytree store
   stats/, steer/      sketches and the between-block steering policy
   runtime/            typed faults, the straggler watchdog, the
                       supervised recovery loop and the multi-process
@@ -28,6 +29,11 @@ Layout (each module names the reference module it ports):
   kernels/            the hand-written CUDA kernels (exact and tau-leap
                       windows, Match), their plain twins, the chunk
                       loops and the nvcc build
+  configs/, models/   the LM skeleton's configs and model zoo (dense,
+                      MoE, VLM): build_model, CausalLM, models/moe.py
+  train/, data/       the one-device trainer (AdamW, the train step,
+                      the crash drill) and the synthetic token pipeline
+  tree.py             nested containers walked in the reference's order
   api/                Experiment spec, simulate(), SimulationResult
   launch/simulate.py  the command line (python -m
                       repro_torch.launch.simulate)

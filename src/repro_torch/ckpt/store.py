@@ -1,5 +1,6 @@
-"""Single-file engine checkpoints; port of the single-file half of
-`repro/ckpt/store.py`, in numpy and hashlib.
+"""Checkpoints; port of `repro/ckpt/store.py`, in numpy and hashlib.
+
+Single-file engine checkpoints:
 
 `save_atomic` is write-temp-fsync-rename with an embedded magic tag and
 a per-content sha256; `verify` loads with typed `CheckpointCorrupt`
@@ -10,18 +11,41 @@ directory keep-last-K semantics. The magic bytes, the integrity key
 names and the digest are the reference's, so a file written by either
 package verifies in the other.
 
-The reference's pytree store (`save`, `restore`, `latest_step`,
-`AsyncWriter`) serves only its trainer and is not ported here.
+The trainer's pytree store: `save` writes <dir>/step_<n>/arrays.npz
+(one array per leaf, keyed by the "/"-join of its path: dict keys, list
+indices, `AdamWState` field names) and a manifest.json with the keys,
+the exotic dtypes and the sha256 of arrays.npz, in a temporary
+directory renamed into place after the manifest's fsync; `latest_step`
+only sees renamed directories; `restore` verifies the digest (raising
+`CheckpointCorrupt`) and fills a template's structure, each leaf cast
+to the template's dtype and placed on its device; `AsyncWriter` saves a
+host snapshot in a background thread. bf16 leaves are stored as their
+uint16 bits with the manifest's dtype entry, as the reference writes
+them, and restored without `ml_dtypes`: files cross between the
+packages both ways. One device holds every leaf whole (the reference's
+placement by shardings is item 18d).
 """
 from __future__ import annotations
 
 import glob
 import hashlib
+import json
 import os
 import re
+import shutil
+import threading
+import time
 from dataclasses import dataclass
+from typing import Any, Optional
 
 import numpy as np
+import torch
+
+from repro_torch.tree import (
+    tree_flatten_with_path,
+    tree_map,
+    tree_unflatten_like,
+)
 
 
 class CheckpointCorrupt(Exception):
@@ -198,3 +222,151 @@ class RetentionPolicy:
             os.remove(p)
             removed.append(p)
         return removed
+
+
+# ---------------------------------------------------------------------------
+# The trainer's pytree store
+# ---------------------------------------------------------------------------
+
+_BITS = {1: np.uint8, 2: np.uint16, 4: np.uint32}
+_HASH_CHUNK = 1 << 26
+
+
+def _host(leaf) -> tuple[np.ndarray, Optional[str]]:
+    """(a leaf as a numpy array, its exotic dtype's name or None); a bf16
+    tensor as its bits, viewed as int16 (numpy has no bfloat16)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), "bfloat16"
+        return t.numpy(), None
+    arr = np.asarray(leaf)
+    if arr.dtype.kind == "V" or arr.dtype.name not in np.sctypeDict:
+        return arr, arr.dtype.name  # an ml_dtypes array of the reference's
+    return arr, None
+
+
+def _flatten(tree: Any) -> tuple[dict[str, np.ndarray], dict[str, str]]:
+    """Returns (arrays, exotic-dtype map): exotic leaves as the uint view
+    of their width, the manifest recording the real dtype."""
+    flat, dtypes = {}, {}
+    for key, leaf in tree_flatten_with_path(tree):
+        arr, exotic = _host(leaf)
+        if exotic is not None:
+            dtypes[key] = exotic
+            arr = arr.view(_BITS[arr.dtype.itemsize])
+        flat[key] = arr
+    return flat, dtypes
+
+
+def _sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(_HASH_CHUNK):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def save(tree: Any, directory: str, step: int) -> str:
+    """Synchronous checkpoint write. Returns the checkpoint path."""
+    tmp = os.path.join(directory, f".tmp_step_{step}")
+    final = os.path.join(directory, f"step_{step}")
+    os.makedirs(tmp, exist_ok=True)
+    flat, dtypes = _flatten(tree)
+    npz_path = os.path.join(tmp, "arrays.npz")
+    np.savez(npz_path, **flat)
+    manifest = {
+        "step": step,
+        "keys": sorted(flat),
+        "dtypes": dtypes,
+        "sha256": _sha256_file(npz_path),
+        "time": time.time(),
+    }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    return final
+
+
+def latest_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_"):
+            if os.path.exists(os.path.join(directory, name, "manifest.json")):
+                steps.append(int(name.split("_")[1]))
+    return max(steps) if steps else None
+
+
+def _leaf_like(arr: np.ndarray, exotic: Optional[str], leaf):
+    """The stored array as the template leaf's type, dtype and device."""
+    if isinstance(leaf, torch.Tensor):
+        if exotic not in (None, "bfloat16"):
+            raise TypeError(f"a {exotic} leaf has no torch counterpart here")
+        t = torch.from_numpy(arr if exotic is None else arr.view(np.int16))
+        if exotic is not None:
+            t = t.view(torch.bfloat16)
+        return t.to(device=leaf.device, dtype=leaf.dtype, copy=True)
+    if exotic is not None:
+        raise TypeError(f"a {exotic} leaf restores only into a tensor "
+                        "template (numpy has no such dtype)")
+    dt = getattr(leaf, "dtype", None)
+    return arr.astype(dt) if dt is not None and arr.dtype != dt else arr
+
+
+def restore(template: Any, directory: str, step: Optional[int] = None) -> Any:
+    """Restore into the structure of `template`: each leaf takes the
+    template leaf's dtype and device. Raises `CheckpointCorrupt` when
+    arrays.npz does not match the manifest's sha256."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+    path = os.path.join(directory, f"step_{step}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    npz_path = os.path.join(path, "arrays.npz")
+    digest = _sha256_file(npz_path)
+    if digest != manifest["sha256"]:
+        raise CheckpointCorrupt(
+            f"checkpoint {path!r} failed verification: arrays.npz "
+            f"checksum mismatch vs manifest (stored "
+            f"{manifest['sha256'][:12]}…, file {digest[:12]}…)")
+    exotic = manifest.get("dtypes", {})
+    out = []
+    with np.load(npz_path) as data:
+        for key, leaf in tree_flatten_with_path(template):
+            out.append(_leaf_like(data[key], exotic.get(key), leaf))
+    return tree_unflatten_like(template, out)
+
+
+class AsyncWriter:
+    """Background checkpoint writer (one in flight; drops none)."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self.last_path: Optional[str] = None
+
+    def submit(self, tree: Any, directory: str, step: int) -> None:
+        self.wait()
+        # snapshot off the device (a copy: the trainer updates in place)
+        host_tree = tree_map(
+            lambda x: (x.detach().to("cpu", copy=True)
+                       if isinstance(x, torch.Tensor) else np.array(x)),
+            tree)
+
+        def work():
+            self.last_path = save(host_tree, directory, step)
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None

@@ -14,6 +14,8 @@ The LM skeleton's parameter and cache trees cross the same way: the
 reference's nested dicts and lists of arrays (repeated layers stacked
 on a leading axis under "stack"), named leaf for leaf as the port's
 `CausalLM` names its parameters. bfloat16 leaves travel as their bits.
+So does the trainer's state, {"params", "opt": AdamWState(step, mu, nu,
+master)}.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.gillespie import LaneState
 from repro_torch.core.reactions import ReactionSystem
+from repro_torch.tree import tree_flatten_with_path, tree_map
 
 SYSTEM_FIELDS = ("reactant_idx", "reactant_coef", "delta", "rates", "x0",
                  "species_names", "reaction_names")
@@ -65,27 +68,12 @@ def to_reference_arrays(system: ReactionSystem, pool: LaneState
     return sysd, poold
 
 
-def _flatten(tree, prefix: str = "") -> dict:
-    """{dotted name: leaf} of a nested dict / list (list entries are
-    named by their index)."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = ((str(i), v) for i, v in enumerate(tree))
-    else:
-        return {prefix: tree}
-    out = {}
-    for k, v in items:
-        out.update(_flatten(v, f"{prefix}.{k}" if prefix else k))
-    return out
-
-
 def _to_tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
-            torch.bfloat16).to(device)
-    return torch.tensor(a, device=device)
+        a = a.view(np.int16)
+        return torch.tensor(a, device=device).view(torch.bfloat16)
+    return torch.tensor(a, device=device)  # a copy: the port owns it
 
 
 def _to_array(t: torch.Tensor) -> np.ndarray:
@@ -104,7 +92,7 @@ def lm_params_from_reference(cfg, tree) -> dict:
     from repro_torch.models.causal_lm import model_defs
     from repro_torch.models.common import flatten_defs
 
-    flat = _flatten(tree)
+    flat = {k.replace("/", "."): a for k, a in tree_flatten_with_path(tree)}
     want = dict(flatten_defs(model_defs(cfg)))
     if set(flat) != set(want):
         raise ValueError(
@@ -141,3 +129,31 @@ def lm_cache_to_reference(cache):
     if isinstance(cache, (list, tuple)):
         return [lm_cache_to_reference(v) for v in cache]
     return _to_array(cache)
+
+
+def train_state_from_reference(tree, device=None) -> dict:
+    """The reference's train state {"params", "opt": AdamWState} (numpy
+    leaves; its `AdamWState` or any object with the four fields) as the
+    port's, on `device` (default: the CUDA device)."""
+    from repro_torch.train.optim import AdamWState
+
+    dev = resolve_device(device)
+
+    def conv(node):
+        return tree_map(lambda a: _to_tensor(a, dev), node)
+
+    opt = tree["opt"]
+    return {"params": conv(tree["params"]),
+            "opt": AdamWState(*(conv(getattr(opt, f))
+                                for f in AdamWState._fields))}
+
+
+def train_state_to_reference(state) -> dict:
+    """The port's train state as numpy trees: {"params", "opt":
+    AdamWState of arrays} (bfloat16 leaves as their int16 bits)."""
+    from repro_torch.train.optim import AdamWState
+
+    opt = state["opt"]
+    return {"params": tree_map(_to_array, state["params"]),
+            "opt": AdamWState(*(tree_map(_to_array, getattr(opt, f))
+                                for f in AdamWState._fields))}

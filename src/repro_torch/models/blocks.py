@@ -1,13 +1,14 @@
 """Block assembly and layer stacking; port of `repro/models/blocks.py`.
 
-A block = pre-norm attention mixer + pre-norm dense FFN, with optional
-parallel residual (command-r). Layer stacks are decomposed into
-`prefix + pattern × n_repeat` (`layer_groups`), and the repeated
-pattern's parameters and caches are stacked on a leading (n_repeat,)
-axis, as the reference stacks them for `lax.scan`, so the two packages'
-parameter and cache trees map one to one. A Python loop over the
-repeats replaces the scan. Experts (`FFN_MOE`) are ROADMAP queue 1
-item 18b.
+A block = pre-norm attention mixer + pre-norm FFN (dense / MoE /
+none), with optional parallel residual (command-r). Layer stacks are
+decomposed into `prefix + pattern × n_repeat` (`layer_groups`, e.g.
+deepseek: 1 dense layer + 27 MoE), and the repeated pattern's
+parameters and caches are stacked on a leading (n_repeat,) axis, as the
+reference stacks them for `lax.scan`, so the two packages' parameter
+and cache trees map one to one. A Python loop over the repeats replaces
+the scan; the router's aux loss is summed over the prefix, then over
+the repeats in order, as the scan carries it.
 """
 from __future__ import annotations
 
@@ -26,10 +27,8 @@ from repro_torch.configs.base import (
 )
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.mlp import apply_mlp, mlp_defs
+from repro_torch.models.moe import apply_moe, moe_defs
 from repro_torch.models.norms import apply_norm, norm_defs
-
-MOE_UNPORTED = ("the mixture-of-experts FFN (models/moe.py) is not ported "
-                "yet: ROADMAP queue 1 item 18b")
 
 # ---------------------------------------------------------------------------
 # Layer grouping
@@ -72,7 +71,9 @@ def block_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
         if not cfg.parallel_block:
             d["norm2"] = norm_defs(cfg.d_model, cfg.norm)
     elif spec.ffn == FFN_MOE:
-        raise NotImplementedError(MOE_UNPORTED)
+        d["ffn"] = moe_defs(cfg)
+        if not cfg.parallel_block:
+            d["norm2"] = norm_defs(cfg.d_model, cfg.norm)
     return d
 
 
@@ -108,11 +109,12 @@ def _apply_attn_decode(params, x, cfg, cache, pos):
 def apply_block(params, x, cfg: ModelConfig, spec: LayerSpec, *,
                 mode: str = "full", positions=None,
                 cache: Optional[dict] = None, pos=None):
-    """Returns (x, new_cache).
+    """Returns (x, new_cache, aux).
 
     mode: "full" (no cache IO), "prefill" (returns the built cache),
     "decode" (single token, writes its K/V into `cache` in place).
     """
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(params["norm1"], x, cfg.norm)
     new_cache: dict = {}
 
@@ -126,17 +128,22 @@ def apply_block(params, x, cfg: ModelConfig, spec: LayerSpec, *,
         if mode == "prefill":
             new_cache.update(kv)
 
-    if spec.ffn == FFN_MOE:
-        raise NotImplementedError(MOE_UNPORTED)
+    def ffn(h_in):
+        nonlocal aux
+        if spec.ffn == FFN_MOE:
+            out, aux_l = apply_moe(params["ffn"], h_in, cfg)
+            aux = aux + aux_l
+            return out
+        return apply_mlp(params["ffn"], h_in, cfg)
+
     if cfg.parallel_block and spec.ffn != FFN_NONE:
         # command-r: y = x + attn(n(x)) + ffn(n(x)) (shared norm)
-        return x + mix_out + apply_mlp(params["ffn"], h, cfg), new_cache
+        return x + mix_out + ffn(h), new_cache, aux
 
     x = x + mix_out
     if spec.ffn != FFN_NONE:
-        h2 = apply_norm(params["norm2"], x, cfg.norm)
-        x = x + apply_mlp(params["ffn"], h2, cfg)
-    return x, new_cache
+        x = x + ffn(apply_norm(params["norm2"], x, cfg.norm))
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -205,36 +212,43 @@ def stack_cache_init(cfg: ModelConfig, specs, batch: int, cache_len: int,
 
 def apply_stack(params, x, cfg: ModelConfig, specs, *, mode="full",
                 positions=None, cache=None, pos=None):
-    """Run the full layer stack. Returns (x, new_cache).
+    """Run the full layer stack. Returns (x, new_cache, aux).
 
     In "decode" mode each layer's K/V slot is written into `cache` in
     place (a repeat's cache is a view of the stacked tensors), and the
     returned cache is `cache` itself. In "prefill" mode the repeats'
     K/V are stacked on a leading (n_repeat,) axis, as the reference's
-    scan stacks them.
+    scan stacks them. A stacked parameter is unbound once, so its
+    gradient is one stack of the repeats' gradients.
     """
     groups = layer_groups(specs)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict = {"prefix": []}
 
     for i, spec in enumerate(groups.prefix):
         c = cache["prefix"][i] if cache is not None else None
-        x, nc = apply_block(params["prefix"][i], x, cfg, spec, mode=mode,
-                            positions=positions, cache=c, pos=pos)
+        x, nc, aux = apply_block(params["prefix"][i], x, cfg, spec,
+                                 mode=mode, positions=positions, cache=c,
+                                 pos=pos)
         new_cache["prefix"].append(nc)
+        aux_total = aux_total + aux
 
     if not groups.n_repeat:
-        return x, new_cache
+        return x, new_cache, aux_total
 
+    unbound = {name: _map(lambda a: a.unbind(0), p)
+               for name, p in params["stack"].items()}
     per_repeat = []
     for r in range(groups.n_repeat):
         ncs = {}
         for j, spec in enumerate(groups.pattern):
-            p = _map(lambda a: a[r], params["stack"][f"l{j}"])
+            p = _map(lambda a: a[r], unbound[f"l{j}"])
             c = (_map(lambda a: a[r], cache["stack"][f"l{j}"])
                  if cache is not None else None)
-            x, ncs[f"l{j}"] = apply_block(p, x, cfg, spec, mode=mode,
-                                          positions=positions, cache=c,
-                                          pos=pos)
+            x, ncs[f"l{j}"], aux = apply_block(
+                p, x, cfg, spec, mode=mode, positions=positions, cache=c,
+                pos=pos)
+            aux_total = aux_total + aux
         per_repeat.append(ncs)
     if mode == "decode":
         new_cache["stack"] = cache["stack"]
@@ -243,4 +257,4 @@ def apply_stack(params, x, cfg: ModelConfig, specs, *, mode="full",
             name: {k: torch.stack([rep[name][k] for rep in per_repeat])
                    for k in per_repeat[0][name]}
             for name in per_repeat[0]}
-    return x, new_cache
+    return x, new_cache, aux_total

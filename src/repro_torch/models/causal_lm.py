@@ -1,10 +1,10 @@
-"""Decoder-only causal LM (the dense and VLM families); port of
+"""Decoder-only causal LM (dense / MoE / VLM families); port of
 `repro/models/causal_lm.py`.
 
 Public surface:
   model = build_model(cfg)              # on the CUDA device; device="cpu"
   model.init(generator)                 # seeded weights (or load_state_dict)
-  loss, metrics = model.loss(batch)
+  loss, metrics = model.loss(batch)     # or model.loss(batch, params=tree)
   cache, logits = model.prefill(batch, cache_len)
   logits, cache = model.decode_step(cache, token, pos)
 
@@ -17,8 +17,10 @@ The parameters are the module's, named after the reference's tree
 ("embed", "blocks.prefix.0.norm1.scale", "blocks.stack.l0.mixer.wq",
 "final_norm.scale", "head"), with the repeated layers stacked on a
 leading axis, so `interop.lm_params_from_reference` carries the
-reference's weights over leaf for leaf. They do not require grad: this
-is the serving path (training is ROADMAP queue 1 item 18c).
+reference's weights over leaf for leaf. They do not require grad:
+`forward`, `prefill` and `decode_step` serve without autograd, and
+`loss` is differentiable in an explicit parameter tree
+(`train.step.make_train_step` passes one that requires grad).
 """
 from __future__ import annotations
 
@@ -111,11 +113,12 @@ class CausalLM(nn.Module):
         """Fill every parameter by the reference's init rules, the leaves
         drawn in `flatten_defs` order from `generator` (a generator on
         this model's device). One leaf's float32 draw is alive at a
-        time."""
+        time; `copy_` rounds it into the parameter's dtype, as the
+        reference's cast does, without a second temporary."""
         params = dict(self.named_parameters())
         for name, d in flatten_defs(self.defs()):
-            params[name].copy_(init_one(d, DTYPES[self.cfg.dtype],
-                                        generator, self.device))
+            params[name].copy_(init_one(d, torch.float32, generator,
+                                        self.device))
         return self
 
     def params(self) -> dict:
@@ -143,23 +146,28 @@ class CausalLM(nn.Module):
             0.0, PAD_LOGIT)
         return logits + pad_mask
 
-    @torch.no_grad()
-    def forward(self, batch, mode: str = "full"):
-        """Returns (logits, cache_or_empty, aux); aux is the router's
-        loss term, 0 for these dense blocks."""
-        params = self.params()
+    def _forward(self, batch, mode: str, params=None):
+        params = self.params() if params is None else params
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)[None, :]
-        x, cache = blocks.apply_stack(params["blocks"], x, self.cfg,
-                                      self.specs, mode=mode,
-                                      positions=positions)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, cache, aux = blocks.apply_stack(params["blocks"], x, self.cfg,
+                                           self.specs, mode=mode,
+                                           positions=positions)
         return self._logits(params, x), cache, aux
 
+    @torch.no_grad()
+    def forward(self, batch, mode: str = "full"):
+        """Returns (logits, cache_or_empty, aux); aux is the router's
+        loss term summed over the layers (0 without experts)."""
+        return self._forward(batch, mode)
+
     # --------------------------------------------------------------- loss
-    def loss(self, batch):
-        logits, _, aux = self.forward(batch, mode="full")
+    def loss(self, batch, params=None):
+        """(loss, metrics) of `batch` under `params` (default: the
+        module's own), differentiable where the parameters require
+        grad."""
+        logits, _, aux = self._forward(batch, "full", params)
         return lm_loss(logits, batch, self.cfg, aux)
 
     # -------------------------------------------------------------- serve
@@ -180,7 +188,7 @@ class CausalLM(nn.Module):
         Writes the token's K/V into `cache` in place and returns it."""
         params = self.params()
         x = params["embed"][self._tensor(token, torch.long)]
-        x, new_cache = blocks.apply_stack(
+        x, new_cache, _ = blocks.apply_stack(
             params["blocks"], x, self.cfg, self.specs, mode="decode",
             cache=cache, pos=self._tensor(pos, torch.long))
         return self._logits(params, x), new_cache

@@ -121,17 +121,55 @@ def param_bytes(defs: DefTree, dtype_name: str) -> int:
 # ---------------------------------------------------------------------------
 
 
+class _F32Product(torch.autograd.Function):
+    """x @ w of two lower-precision operands as one float32-output
+    product (`torch.mm` / `torch.bmm` with `out_dtype`, which has no
+    derivative of its own). The backward rounds the float32 cotangent to
+    the operands' dtype and emits each gradient in it (float32
+    accumulation): the reference's transpose keeps the cotangent in
+    float32 instead, so bf16 gradients may differ from its by a
+    rounding; float32 operands never reach this product."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if w.ndim == 2:
+            y = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                         out_dtype=torch.float32)
+            return y.reshape(*x.shape[:-1], w.shape[-1])
+        return torch.bmm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gy = gy.to(x.dtype)
+        gx = gw = None
+        if w.ndim == 2:
+            g2 = gy.reshape(-1, gy.shape[-1])
+            if ctx.needs_input_grad[0]:
+                gx = (g2 @ w.T).reshape(x.shape)
+            if ctx.needs_input_grad[1]:
+                gw = x.reshape(-1, x.shape[-1]).T @ g2
+        else:
+            if ctx.needs_input_grad[0]:
+                gx = torch.bmm(gy, w.transpose(1, 2))
+            if ctx.needs_input_grad[1]:
+                gw = torch.bmm(x.transpose(1, 2), gy)
+        return gx, gw
+
+
 def matmul(x, w, dtype=None):
     """x @ w emitting `dtype` (default: x's dtype), accumulated in
-    float32. A float32 result from lower-precision inputs is one
-    float32-output product on the card and the product of the upcast
-    inputs on the CPU, which has no such product."""
+    float32. w is (K, N), or (E, K, N) against x (E, M, K): the experts'
+    batched products. A float32 result from lower-precision inputs is
+    one float32-output product on the card (`_F32Product`,
+    differentiable) and the product of the upcast inputs on the CPU,
+    which has no such product."""
     out = dtype or x.dtype
     if out == x.dtype:
         return x @ w
-    if x.is_cuda and w.ndim == 2:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=out)
-        return y.reshape(*x.shape[:-1], w.shape[-1])
+    if x.is_cuda and (w.ndim == 2 or (w.ndim == 3 and x.ndim == 3)):
+        return _F32Product.apply(x, w)
     return x.to(out) @ w.to(out)
 
 

@@ -12,7 +12,12 @@ them through heartbeat files:
   checkpoint frontier, straggler rate, phase) every ``heartbeat_s / 2``;
 * a heartbeat stale for ``3 x heartbeat_s`` is a `worker_stall`: the
   worker is SIGKILLed (after a SIGCONT, so a SIGSTOPped one dies too)
-  and restarted;
+  and restarted. A worker whose heartbeat says "init" (starting up) or
+  "done" (its windows run: it writes its bundle and exits, the CUDA
+  context's teardown included, after its last beat) is held to the
+  launch grace, ``max(60, 10 x heartbeat_s)`` s, instead; the
+  reference holds "done" to the running limit, which a card worker's
+  exit can outlast at a heartbeat of half a second;
 * a dead process, or an exit without a verifying result bundle, is a
   `host_lost`;
 * a restart waits a bounded exponential backoff (``backoff_base_s *
@@ -334,8 +339,10 @@ class FarmCoordinator:
                 done.add(sh.index)
                 slot.shard = None
                 self.watchdog.forget(sh.index)
+                # quiet_s: from the worker's last heartbeat to the poll
+                # that saw its exit (the bundle's write and the exit)
                 self._log("worker_done", worker=slot.index,
-                          shard=sh.index)
+                          shard=sh.index, quiet_s=self._quiet_s(sh))
             else:
                 why = (f"exit code {rc}" if rc != 0 else
                        "exit 0 without a verifying result bundle")
@@ -352,17 +359,18 @@ class FarmCoordinator:
             except OSError:
                 return
             # "init" (engine build, restore, the kernel library's load)
-            # is judged by the launch grace, a running worker by the
-            # 3 x heartbeat_s contract
-            limit = (grace if hb.get("phase") == "init"
+            # and "done" (the bundle's write, then the exit past the last
+            # beat) are judged by the launch grace, a running worker by
+            # the 3 x heartbeat_s contract
+            limit = (grace if hb.get("phase") in ("init", "done")
                      else 3.0 * rec.heartbeat_s)
             if stale > limit and now - slot.launch_t > limit:
                 self._kill(slot.proc)
                 slot.proc = None
                 self._fault(slot, pending, "worker_stall",
-                            f"heartbeat stale for {stale:.1f}s "
-                            f"(limit {limit:.1f}s, heartbeat_s="
-                            f"{rec.heartbeat_s})",
+                            f"heartbeat stale for {stale:.1f}s in phase "
+                            f"{hb.get('phase')} (limit {limit:.1f}s, "
+                            f"heartbeat_s={rec.heartbeat_s})",
                             window=int(hb.get("window", -1)))
         elif now - slot.launch_t > grace:
             # never wrote a first heartbeat: hung before liveness
@@ -412,6 +420,13 @@ class FarmCoordinator:
             proc.wait(timeout=30)
         except subprocess.TimeoutExpired:
             pass
+
+    @staticmethod
+    def _quiet_s(sh: _Shard) -> Optional[float]:
+        try:
+            return round(time.time() - os.path.getmtime(sh.hb_path), 3)
+        except OSError:
+            return None
 
     def _read_heartbeat(self, sh: _Shard) -> Optional[dict]:
         try:
@@ -510,6 +525,11 @@ class FarmCoordinator:
                 for sh, m in zip(self.shards, metas)},
             "kernel_launches": {
                 sh.index: m["kernel_launches"]
+                for sh, m in zip(self.shards, metas)},
+            # each worker's heartbeat timing (its last attempt): the
+            # longest span between two writes by phase, the longest write
+            "heartbeats": {
+                sh.index: m.get("heartbeat")
                 for sh, m in zip(self.shards, metas)},
             "merge_s": self.merge_s,
             "events": list(self._events),

@@ -90,12 +90,33 @@ class WorkerSupervisor(RunSupervisor):
                           "window": 0, "ckpt_window": -1,
                           "straggler_rate": 0.0, "phase": "init"}
         self._hb_stop = threading.Event()
+        # the heartbeat's own timing, for the bundle's meta: the longest
+        # span between two finished writes by the phase of the later one
+        # (what the coordinator's staleness check sees) and the longest
+        # write
+        self._hb_last = None
+        self._hb_max_gap: dict = {}
+        self._hb_max_write = 0.0
 
     # ------------------------------------------------------- heartbeat
     def write_heartbeat(self) -> None:
         with self._hb_lock:
             payload = dict(self._hb_state, time=time.time())
+        t0 = time.time()
         _write_json_atomic(self._hb_path, payload)
+        t1 = time.time()
+        with self._hb_lock:
+            if self._hb_last is not None:
+                phase = payload["phase"]
+                self._hb_max_gap[phase] = max(
+                    self._hb_max_gap.get(phase, 0.0), t1 - self._hb_last)
+            self._hb_last = t1
+            self._hb_max_write = max(self._hb_max_write, t1 - t0)
+
+    def heartbeat_timing(self) -> dict:
+        with self._hb_lock:
+            return {"max_gap_s": dict(self._hb_max_gap),
+                    "max_write_s": self._hb_max_write}
 
     def start_heartbeat(self) -> None:
         self.write_heartbeat()  # announce liveness before the run
@@ -165,6 +186,7 @@ def _result_bundle(result, sup: WorkerSupervisor, started: dict) -> dict:
         "steering": eng.steering_report(),
         "device": str(eng.device),
         "kernel_launches": kernel_launches(),
+        "heartbeat": sup.heartbeat_timing(),
         # wall clock (s) at the start of run_worker (the interpreter and
         # the imports done), with the device up, and now
         **started, "t_done": time.time(),

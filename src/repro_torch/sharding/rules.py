@@ -44,6 +44,10 @@ class Topology:
     model: ModelConfig
     sharding: ShardingConfig
 
+    @property
+    def n_devices(self) -> int:
+        return 1
+
     def constrain(self, x, *logical: Optional[str]):
         """A layout constraint by logical axes: nothing to place on one
         device, so x is returned as it is."""

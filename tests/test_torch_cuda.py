@@ -961,3 +961,113 @@ def test_cuda_run_reference_trajectory_matches_cpu(cuda, name):
     host = tg.run_reference_trajectory(system, grid, seed=3, device="cpu")
     assert card.device.type == "cuda"
     assert torch.equal(card.cpu(), host)
+
+
+def _routes(model, batch):
+    """(logits, every MoE layer's expert ids) of one forward."""
+    from repro_torch.models import moe
+
+    ids, route = [], moe.route
+
+    def rec(params, x, cfg):
+        out = route(params, x, cfg)
+        ids.append(out[2].cpu())
+        return out
+
+    moe.route = rec
+    try:
+        logits = model.forward(batch)[0]
+    finally:
+        moe.route = route
+    return logits, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "deepseek-moe-16b"])
+def test_cuda_moe_serving_path_matches_cpu(cuda, name):
+    """The MoE smoke configs in float32 on the card against the CPU with
+    the same weights: every layer's expert ids first (equal), then
+    forward, prefill (cache and last logits) and a decode step at
+    tests/test_torch_models.py's 2e-4."""
+    from repro_torch.configs.registry import get_smoke_config
+
+    cfg = get_smoke_config(name)
+    host, card = _lm_pair(cfg, cuda)
+    rng = np.random.default_rng(2)
+    batch = _lm_batch(cfg, rng)
+    (f_card, ids_card), (f_host, ids_host) = (_routes(m, batch)
+                                              for m in (card, host))
+    assert len(ids_card) == len(ids_host) > 0
+    for a, b in zip(ids_card, ids_host):
+        assert torch.equal(a, b)
+    tol = dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(f_card.cpu().numpy(), f_host.numpy(), **tol)
+    (c_card, l_card), (c_host, l_host) = (m.prefill(batch, cache_len=36)
+                                          for m in (card, host))
+    np.testing.assert_allclose(l_card.cpu().numpy(), l_host.numpy(), **tol)
+    token = rng.integers(0, cfg.vocab_size, (2, 1))
+    pos = np.full((2,), 32)
+    np.testing.assert_allclose(
+        card.decode_step(c_card, token, pos)[0].cpu().numpy(),
+        host.decode_step(c_host, token, pos)[0].numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_cuda_float32_output_product_and_its_gradient(cuda, batched):
+    """`models.common.matmul` of bf16 operands with a float32 result is
+    one float32-output product on the card (2-D weight: `torch.mm`;
+    (E, C, d) x (E, d, f): `torch.bmm`), equal to the product of the
+    upcast operands within float32 accumulation; its gradients are bf16,
+    within a bf16 rounding of the upcast product's."""
+    from repro_torch.models.common import matmul
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    shape_x, shape_w = (((4, 16, 64), (4, 64, 32)) if batched
+                        else ((2, 16, 64), (64, 32)))
+    x = torch.randn(shape_x, generator=g, device=cuda).bfloat16()
+    w = torch.randn(shape_w, generator=g, device=cuda).bfloat16()
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    y = matmul(x, w, dtype=torch.float32)
+    assert y.dtype == torch.float32
+    ref = x.float() @ w.float()
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+    gy = torch.randn(y.shape, generator=g, device=cuda)
+    gx, gw = torch.autograd.grad(y, (x, w), gy)
+    rx, rw = torch.autograd.grad(ref, (x, w), gy)
+    assert gx.dtype == gw.dtype == torch.bfloat16
+    for a, b in ((gx, rx), (gw, rw)):
+        assert float((a.float() - b.float()).abs().max()) <= \
+            2 ** -6 * float(b.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda):
+    """One olmoe smoke train step (float32, grad_accum 2) on the card
+    against the CPU from the same state: loss, grad norm and params."""
+    from repro_torch.configs.base import OptimizerConfig, ShardingConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_smoke_config("olmoe-1b-7b")
+    host, card = _lm_pair(cfg, cuda)
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=5, total_steps=100)
+    scfg = ShardingConfig(strategy="dp_tp", grad_accum=2)
+    batch = synth_batch(cfg, 8, 32, 0)
+    out = []
+    for m in (host, card):
+        state = {"params": m.params(),
+                 "opt": init_opt_state(m.params(), ocfg)}
+        state, metrics = make_train_step(m, ocfg, scfg)(state, batch)
+        out.append((state, metrics))
+    (s_h, m_h), (s_c, m_c) = out
+    np.testing.assert_allclose(float(m_c["loss"]), float(m_h["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m_c["grad_norm"]),
+                               float(m_h["grad_norm"]), rtol=1e-4)
+    for a, b in zip(tree_leaves(s_c["params"]), tree_leaves(s_h["params"])):
+        assert float((a.cpu() - b).abs().max()) <= 2 * float(m_h["lr"])

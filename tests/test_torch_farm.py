@@ -25,10 +25,13 @@ and 40 over 80 replicas, against 50 and 800 over 4): the same relative
 CIs and decisions at a twentieth of the events, which the port's CPU
 twin pays step by step.
 """
+import collections
+import json
 import os
 import pickle
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -184,6 +187,11 @@ def test_farm_fault_free_is_bitwise(single, port_farm):
     assert rep["reassignments"] == 0
     assert len(_events(rep, "worker_launched")) == WORKERS
     assert len(_events(rep, "worker_done")) == WORKERS
+    assert all(e["quiet_s"] >= 0 for e in _events(rep, "worker_done"))
+    assert sorted(rep["heartbeats"]) == list(range(WORKERS))
+    assert all(h["max_gap_s"].get("run", 0.0) < 3 * 2.0
+               and h["max_write_s"] >= 0
+               for h in rep["heartbeats"].values())
     # steering forces lock-step in every worker, visibly
     assert rep["pipeline_depth_effective"] == 1
     assert sorted(rep["worker_reports"]) == list(range(WORKERS))
@@ -230,6 +238,39 @@ def test_farm_sigstop_stall_drill(single, tmp_path):
     stalls = [e for e in _events(rep, "fault")
               if e["kind"] == "worker_stall"]
     assert stalls and "stale" in stalls[0]["error"]
+
+
+@pytest.mark.parametrize("phase,stalled", [("init", False), ("run", True),
+                                           ("done", False)])
+def test_stale_heartbeat_judged_by_phase(tmp_path, phase, stalled):
+    """A live worker whose heartbeat is 2 s old at heartbeat_s = 0.5 (past
+    the 1.5 s running limit): a running one is a worker_stall and is
+    killed; one starting up ("init") or finished and exiting ("done")
+    is held to the launch grace and left alone."""
+    coord = t_coord.FarmCoordinator(
+        _exp(), _recovery(T, tmp_path, heartbeat_s=0.5), device="cpu")
+    slot = t_coord._Slot(0, torch.device("cpu"))
+    sh = slot.shard = coord.shards[0]
+    slot.proc = subprocess.Popen([sys.executable, "-c",
+                                  "import time; time.sleep(60)"])
+    try:
+        slot.launch_t = sh.launch_t = time.time() - 10.0
+        with open(sh.hb_path, "w") as f:
+            f.write(json.dumps({"shard": 0, "window": N_WINDOWS,
+                                "phase": phase}) + "\n")
+        os.utime(sh.hb_path, (time.time() - 2.0,) * 2)
+        coord._poll_slot(slot, collections.deque(), set())
+        if stalled:
+            assert coord._faults == {"worker_stall": 1}
+            assert slot.proc is None and slot.restarts == 1
+            faults = _events({"events": coord._events}, "fault")
+            assert "stale" in faults[0]["error"]
+        else:
+            assert coord._faults == {} and slot.proc.poll() is None
+    finally:
+        if slot.proc is not None:
+            slot.proc.kill()
+            slot.proc.wait()
 
 
 def test_farm_corrupt_checkpoint_drill(single, tmp_path):

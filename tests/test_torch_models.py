@@ -36,7 +36,6 @@ from repro_torch.sharding.rules import smoke_topology
 
 DENSE = ("llama3-8b", "gemma-7b", "command-r-35b", "starcoder2-7b",
          "internvl2-1b")
-MOE = ("olmoe-1b-7b", "deepseek-moe-16b")
 TOL = dict(rtol=2e-4, atol=2e-4)
 OFFSET_LEAVES = {"scale", "bias", "bq", "bk", "bv", "bo", "b_up", "b_down"}
 B, S = 2, 32
@@ -225,14 +224,6 @@ def test_layer_groups_decomposition():
         g = layer_groups(specs)
         assert (len(g.prefix), len(g.pattern), g.n_repeat) == want, name
         assert tuple(list(g.prefix) + list(g.pattern) * g.n_repeat) == specs
-
-
-@pytest.mark.parametrize("name", MOE)
-@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
-def test_build_model_refuses_moe(name, smoke):
-    cfg = (registry.get_smoke_config if smoke else registry.get_config)(name)
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        build_model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("name", j_registry.ARCH_NAMES)
