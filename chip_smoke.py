@@ -192,7 +192,35 @@ Phases (each prints its own lines; any failure exits non-zero):
              size); accum 2 against accum 1 on one batch; the crash
              drill of tests/test_train.py on the olmoe smoke config.
              Prints the two phases' total.
-12. report — one JSON line of per-kernel numbers (launches: the main
+12. mesh   — the multi-device pieces, one process over a mesh of
+             cuda:0..3 when four cards are visible, else of repeated
+             entries of cuda:0 (printed), each shard's body in mesh
+             order. 12a: olmoe-1b-7b at full width on a (1, 4) (data,
+             model) mesh with experts split over model: one MoE layer on
+             phase 10's 2,048-token prefill input (the EP path) and on a
+             4-token decode input (EP-small), each against the one-device
+             apply_moe and moe_dense_oracle at capacity factor E/k
+             (nothing drops); phase 10's requests served on the mesh at
+             the config's capacity (prefill rerun bitwise, drops by model
+             shard, 32 greedy decode steps, logits finite); the config cut
+             to 2 layers at factor E/k against the one-device model
+             (expert ids equal, logits within phase 9's bound). 12b:
+             deepseek-moe-16b the same on (2, 2) with expert_parallel off
+             (TP-in-expert, shared experts split over model, the batch
+             over data). 12c: llama3-8b decoding with its 544-slot cache
+             split 4 x 136 over model on (1, 4) and over data on (4, 1),
+             fed the one-device greedy run's tokens: layer 0's decoded K/V
+             bitwise, the 2-layer cut's logits within phase 9's bound.
+             12d: make_dp_train_step on olmoe-1b-7b cut to 2 layers over
+             2 shards: 5 steps of synth_batch 8 x 1024 with int8 error
+             feedback (the loss falls, a rerun bitwise), compress=False
+             against make_train_step on the whole batch in float32, the
+             step's ms beside phase 11's and the one device's at
+             grad_accum 2, the compression's own ms. 12e: merge_over_axis
+             of phase 3's observables over 8 shards, bitwise against
+             merge_blocks. Each sub-phase's wall and peak memory, and the
+             phase's total.
+13. report — one JSON line of per-kernel numbers (launches: the main
              paths', phase 6's counted sharded runs', the workers' of
              7a and 7b and phase 8's use_kernel=True runs, each from its
              own counter), the card line, then the result line.
@@ -1016,7 +1044,8 @@ def phase_main(device) -> dict:
         f"{k_ms / win0_ms:.4f}")
     return dict(launches=nums["launches"], ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound, bound_by=by, err=err, steps=nums["steps"],
-                win_ms=nums["win_ms"], records=nums["records"])
+                win_ms=nums["win_ms"], records=nums["records"],
+                final_x=nums["final_x"])
 
 
 def sparse_experiment(model):
@@ -3230,7 +3259,7 @@ def train_drill(device) -> str:
     return msg
 
 
-def phase_train(device, card) -> None:
+def phase_train(device, card) -> float:
     """Phase 11: the one-card trainer on olmoe-1b-7b at full width cut
     to TRAIN_LAYERS layers: TRAIN_STEPS steps of synth_batch TRAIN_BATCH
     x TRAIN_SEQ at the registry's grad_accum over TRAIN_DATA repeated
@@ -3335,6 +3364,7 @@ def phase_train(device, card) -> None:
     torch.cuda.empty_cache()
     log(f"[train] 11 {train_accum_check(cfg, ocfg, scfg, batches[0], device)}")
     log(f"[train] 11 {train_drill(device)}; {card}")
+    return step_ms
 
 
 def phase_llm_parity(device) -> None:
@@ -3419,6 +3449,614 @@ def phase_llm_parity(device) -> None:
             f"{max(worst):.3g} (rtol = atol = {LLM_F32_TOL})")
 
 
+# phase 12: the multi-device pieces over a mesh of the visible cards, or
+# of repeated entries of the one card
+MESH_SHARDS = 4
+MERGE_SHARDS = 8
+# one MoE layer on a mesh against the one-device apply_moe and the dense
+# oracle, at a capacity factor of E/k (nothing drops on either): EP rounds
+# the experts' outputs to bf16 before its combine (the reference does), so
+# the two may differ by a bf16 rounding of the output
+MESH_LAYER_TOL = 2 ** -7
+# the data-parallel step: olmoe-1b-7b at full width cut to DP_LAYERS
+# layers, DP_SHARDS shards, DP_STEPS steps of synth_batch TRAIN_BATCH x
+# TRAIN_SEQ; compress=False against make_train_step on the whole batch in
+# float32 (aux off, nothing drops) within TRAIN_ACCUM_ATOL after one step
+DP_LAYERS = 2
+DP_SHARDS = 2
+DP_STEPS = 5
+# the 2-layer cut on a mesh against one device runs in float32: in bf16
+# EP rounds each expert output before its combine (the reference does),
+# which moves layer 1's input by a bf16 rounding and flips near-tie
+# routes; in float32 only a token whose k-th and (k+1)-th probabilities
+# lie within MESH_NEAR_TIE may take the other expert (counted, printed)
+MESH_NEAR_TIE = 1e-5
+
+
+def mesh_devices(n: int, device) -> list:
+    """cuda:0..3 in turn when four cards are visible, else n entries of
+    `device`."""
+    import torch
+
+    if torch.cuda.device_count() >= MESH_SHARDS:
+        return [torch.device("cuda", k % MESH_SHARDS) for k in range(n)]
+    return [device] * n
+
+
+def mesh_topology(cfg, shape, axes, device, **sharding):
+    from repro_torch.configs.base import MeshSpec, ShardingConfig
+    from repro_torch.sharding.rules import Topology, make_mesh_from_spec
+
+    n = 1
+    for s in shape:
+        n *= s
+    mesh = make_mesh_from_spec(MeshSpec(shape, axes),
+                               mesh_devices(n, device))
+    return Topology(mesh, cfg, ShardingConfig(strategy="dp_tp", **sharding))
+
+
+def on_topology(model, topo):
+    """The same module (its parameters shared) under another topology."""
+    import copy
+
+    other = copy.copy(model)
+    other.topo = topo
+    return other
+
+
+def sub_phase(label, card):
+    """A context that prints a sub-phase's wall and peak memory."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        log(f"[mesh] {label}: {time.perf_counter() - t0:.1f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {card}")
+
+    return ctx()
+
+
+def mesh_routes(probe, n_calls: int, pick) -> list:
+    """A probe's routes regrouped to one (probs, ids) per layer: each
+    layer made n_calls route calls (one a shard); `pick` keeps the
+    shards that cover the tokens once, in order."""
+    import torch
+
+    out = []
+    for i in range(0, len(probe.routes), n_calls):
+        calls = [probe.routes[i + j] for j in pick]
+        out.append((torch.cat([c[0] for c in calls]),
+                    torch.cat([c[1] for c in calls])))
+    return out
+
+
+def route_flips(a, b, k) -> tuple[int, float]:
+    """(tokens whose expert ids differ, summed over layers; the largest
+    top-k margin among them, else -1) of two lists of (probs, ids) by
+    layer."""
+    n, largest = 0, -1.0
+    for (pa, ia), (_, ib) in zip(a, b):
+        bad = (ia.cpu() != ib.cpu()).any(dim=-1)
+        if bool(bad.any()):
+            n += int(bad.sum())
+            largest = max(largest,
+                          float(route_margin(pa.cpu(), k)[bad].max()))
+    return n, largest
+
+
+def mesh_moe_layer(tag, model, topo, prompts, card) -> None:
+    """One MoE layer of `model` at full width on phase 10's prefill input
+    (the mesh's big-batch path) and on a 4-token decode input (its small
+    path), each against the one-device apply_moe and moe_dense_oracle at
+    capacity factor E/k."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import FFN_MOE
+    from repro_torch.models.blocks import layer_groups
+    from repro_torch.models.moe import apply_moe, moe_dense_oracle
+    from repro_torch.models.norms import apply_norm
+
+    cfg = model.cfg
+    nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                 / cfg.n_experts_per_token)
+    ntopo = dataclasses.replace(topo, model=nodrop)
+    params = model.params()
+    groups = layer_groups(model.specs)
+    j = next(i for i, sp in enumerate(groups.pattern) if sp.ffn == FFN_MOE)
+    layer = _stack_slice(params["blocks"]["stack"][f"l{j}"], 0)
+    b, p = prompts.shape[0], LLM_PROMPT
+    with torch.no_grad():
+        for what, tokens in (("prefill", prompts[:, :p]),
+                             ("decode", prompts[:, p:p + 1])):
+            h = apply_norm(layer["norm2"], params["embed"][tokens], cfg.norm)
+            with MoeProbe() as probe:
+                y, aux = apply_moe(layer["ffn"], h, nodrop, ntopo)
+            y1, aux1 = apply_moe(layer["ffn"], h, nodrop)
+            yo, _ = moe_dense_oracle(layer["ffn"], h, nodrop)
+            kept = min([float(k) for k in probe.keep] or [1.0])
+            mesh_ms = cuda_ms(lambda: apply_moe(layer["ffn"], h, nodrop,
+                                                ntopo))
+            one_ms = cuda_ms(lambda: apply_moe(layer["ffn"], h, nodrop))
+            top = float(y1.float().abs().max())
+            d1 = float((y.float() - y1.float()).abs().max())
+            do = float((y.float() - yo.float()).abs().max())
+            log(f"[mesh] {tag} one MoE layer, {what} input "
+                f"({b * tokens.shape[1]} tokens, capacity factor {nodrop.capacity_factor:.4g}, kept "
+                f"{kept:.4f}): on the mesh {mesh_ms:.3f} ms, one device "
+                f"{one_ms:.3f} ms; max |y| {top:.4g}, max |diff| against "
+                f"one device {d1:.4g}, against moe_dense_oracle {do:.4g} "
+                f"(bound {MESH_LAYER_TOL:.4g} of max |y|); aux "
+                f"{float(aux):.6f} against {float(aux1):.6f} (the mesh's is "
+                f"the mean of its shards' own, as the reference's)")
+            if not (kept == 1.0 and d1 <= MESH_LAYER_TOL * top
+                    and do <= MESH_LAYER_TOL * top):
+                raise AssertionError(f"{tag}: the mesh's MoE layer disagrees "
+                                     f"on the {what} input")
+    del y, y1, yo, h, layer, params
+
+
+def mesh_serve(tag, model, card) -> dict:
+    """Phase 10's requests on the mesh model at the config's capacity:
+    prefill (timed, rerun bitwise, drops by model shard), 32 greedy
+    decode steps (timed, logits finite)."""
+    import numpy as np
+    import torch
+
+    cfg, device = model.cfg, model.device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LLM_SEED + 1)
+    b, p = LLM_BATCH, LLM_PROMPT
+    prompts = torch.randint(0, cfg.vocab_size, (b, p + 1), generator=gen,
+                            device=device)
+    batch = {"tokens": prompts[:, :p]}
+    model.prefill(batch, cache_len=LLM_CACHE)  # warm-up
+    out = [None]
+
+    def prefill():
+        out[0] = model.prefill(batch, cache_len=LLM_CACHE)
+
+    with MoeProbe() as probe:
+        pre_ms = cuda_ms(prefill)
+    cache, last = out[0]
+    cache2, last2 = model.prefill(batch, cache_len=LLM_CACHE)
+    same = torch.equal(last, last2) and all(
+        torch.equal(a, c) for kv in ("k", "v")
+        for a, c in zip(layer_kvs(cache, kv), layer_kvs(cache2, kv)))
+    del cache2, last2
+    n = model.topo.n_devices
+    keep = np.array([float(k) for k in probe.keep]).reshape(-1, n)
+    drops = [round(float(x), 4) for x in 1 - keep.mean(axis=0)]
+    token = prompts[:, p:p + 1]
+    step_ms, logits = [], []
+    for i in range(LLM_DECODE):
+        pos = torch.full((b,), p + i, dtype=torch.long, device=device)
+
+        def step():
+            out[0] = model.decode_step(cache, token, pos)
+
+        step_ms.append(cuda_ms(step))
+        lg, cache = out[0]
+        logits.append(lg)
+        token = lg[:, :, :cfg.vocab_size].argmax(dim=-1)
+    logits = torch.cat(logits, dim=1)
+    finite = bool(torch.isfinite(logits).all()) and bool(
+        torch.isfinite(last).all())
+    dec = float(np.mean(step_ms[1:]))
+    log(f"[mesh] {tag} served on the mesh, {b} x {p} prefill at capacity "
+        f"factor {cfg.capacity_factor}: {pre_ms:.3f} ms, a rerun bitwise "
+        f"{same}; share of routed entries dropped by shard (mean over "
+        f"layers) {drops}, largest in a layer "
+        f"{round(float(1 - keep.min()), 4)}; {LLM_DECODE} greedy decode "
+        f"steps: first {step_ms[0]:.3f} ms, then mean {dec:.3f} ms; logits "
+        f"finite {finite}")
+    if not (same and finite):
+        raise AssertionError(f"{tag}: the mesh's serving run failed")
+    del cache, logits
+    return {"prefill_ms": pre_ms, "decode_ms": dec}
+
+
+def mesh_cut(tag, cfg, topo, device) -> None:
+    """The config cut to LLM_CHECK_LAYERS layers at capacity factor E/k,
+    in float32: prefill and the first decode step on the mesh against
+    the one-device model on the same weights, expert ids compared layer
+    by layer."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import build_model
+
+    cut = dataclasses.replace(cfg, n_layers=LLM_CHECK_LAYERS,
+                              dtype="float32", capacity_factor=cfg.n_experts
+                              / cfg.n_experts_per_token)
+    ctopo = dataclasses.replace(topo, model=cut)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LLM_SEED)
+    one = build_model(cut, device=device).init(gen)
+    mesh = on_topology(one, ctopo)
+    b, p, v = LLM_BATCH, LLM_PROMPT, cut.vocab_size
+    prompts = torch.randint(0, v, (b, p + 1), generator=gen, device=device)
+    n = ctopo.n_devices
+    tp = ctopo.tp_size
+    ep_path = ctopo.rules["experts"] is not None
+    res = {}
+    for name, m in (("one", one), ("mesh", mesh)):
+        with MoeProbe() as pre:
+            cache, last = m.prefill({"tokens": prompts[:, :p]},
+                                    cache_len=LLM_CACHE)
+        with MoeProbe() as dec:
+            step, _ = m.decode_step(cache, prompts[:, p:],
+                                    torch.full((b,), p, device=device))
+        res[name] = (last, step, pre, dec)
+        del cache
+    # which shards' routes cover the tokens once, in order: EP slices
+    # every data shard's tokens over `model` (all positions, row-major);
+    # TP and EP-small repeat a data shard's routing over `model`
+    every = list(range(n))
+    first = [i for i in range(n) if i % tp == 0]
+    pre_m = mesh_routes(res["mesh"][2], n, every if ep_path else first)
+    dec_m = mesh_routes(res["mesh"][3], n, first)
+    flips_p, m_p = route_flips(pre_m, res["one"][2].routes,
+                               cut.n_experts_per_token)
+    flips_d, m_d = route_flips(dec_m, res["one"][3].routes,
+                               cut.n_experts_per_token)
+    margin = max(m_p, m_d)
+    d_pre = logits_spread(res["mesh"][0][..., :v], res["one"][0][..., :v])[0]
+    d_dec = logits_spread(res["mesh"][1][..., :v], res["one"][1][..., :v])[0]
+    log(f"[mesh] {tag} cut to {LLM_CHECK_LAYERS} layers, float32, capacity "
+        f"factor {cut.capacity_factor:.4g}: on the mesh against one device, "
+        f"expert ids differing on {flips_p} prefill and {flips_d} decode "
+        f"token-layers (largest top-k margin among them {margin:.3g}, near-"
+        f"tie bound {MESH_NEAR_TIE}); max |diff| over max |logit| prefill "
+        f"{d_pre:.4g}, first decode step {d_dec:.4g} (bound "
+        f"{LLM_DECODE_TOL})")
+    if margin >= MESH_NEAR_TIE or not (d_pre <= LLM_DECODE_TOL
+                                       and d_dec <= LLM_DECODE_TOL):
+        raise AssertionError(f"{tag}: the cut model on the mesh disagrees "
+                             "with one device")
+    del one, mesh, res
+    torch.cuda.empty_cache()
+
+
+def mesh_moe(tag, arch, shape, device, card, **sharding) -> dict:
+    """12a / 12b: a MoE config at full width on a mesh."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    topo = mesh_topology(cfg, shape, ("data", "model"), device, **sharding)
+    path = ("EP (experts over model)" if topo.rules["experts"]
+            else "TP-in-expert (expert FFN over model)")
+    log(f"[mesh] {tag} {arch} at full width on a {shape} (data, model) "
+        f"mesh of {[str(d) for d in topo.mesh.device_list()]}: {path}, "
+        f"batch over {topo.rules['batch']}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LLM_SEED)
+    model = build_model(cfg, topo).init(gen)
+    prompts = torch.randint(0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT + 1),
+                            generator=gen, device=device)
+    mesh_moe_layer(tag, model, topo, prompts, card)
+    nums = mesh_serve(tag, model, card)
+    del model, prompts
+    torch.cuda.empty_cache()
+    mesh_cut(tag, cfg, topo, device)
+    return nums
+
+
+def mesh_llm(device, card) -> None:
+    """12c: llama3-8b at full width, decoding with the cache split on its
+    sequence axis over `model` on (1, 4) and over `data` on (4, 1), fed
+    the one-device greedy run's tokens: layer 0's decoded K/V bitwise,
+    the full-depth logits spread printed, and the 2-layer cut's first
+    decode step within LLM_DECODE_TOL (float32)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(LLM_ARCH)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LLM_SEED)
+    one = build_model(cfg, device=device).init(gen)
+    b, p, v = LLM_BATCH, LLM_PROMPT, cfg.vocab_size
+    prompts = torch.randint(0, v, (b, p), generator=gen, device=device)
+
+    def run(model, tokens=None):
+        cache, last = model.prefill({"tokens": prompts}, cache_len=LLM_CACHE)
+        token = last[:, :, :v].argmax(-1) if tokens is None else tokens[0]
+        fed, logits, ms = [], [], []
+        for i in range(LLM_DECODE):
+            fed.append(token)
+            pos = torch.full((b,), p + i, dtype=torch.long, device=device)
+            out = [None]
+
+            def step():
+                out[0] = model.decode_step(cache, token, pos)
+
+            ms.append(cuda_ms(step))
+            lg, cache = out[0]
+            logits.append(lg)
+            token = (lg[:, :, :v].argmax(-1) if tokens is None
+                     else tokens[min(i + 1, LLM_DECODE - 1)])
+        return cache, torch.cat(logits, 1), fed, float(np.mean(ms[1:]))
+
+    cache1, logits1, fed, one_ms = run(one)
+    for shape, axis in (((1, 4), "model"), ((4, 1), "data")):
+        topo = mesh_topology(cfg, shape, ("data", "model"), device,
+                             seq_sharded_kv=True, kv_seq_axis=axis)
+        mesh = on_topology(one, topo)
+        cache, logits, _, ms = run(mesh, fed)
+        k0 = [c for c in (cache["stack"]["l0"]["k"][0],
+                          cache["stack"]["l0"]["v"][0])]
+        r0 = [cache1["stack"]["l0"]["k"][0], cache1["stack"]["l0"]["v"][0]]
+        same = all(torch.equal(a[:, p:p + LLM_DECODE], c[:, p:p + LLM_DECODE])
+                   for a, c in zip(k0, r0))
+        spread, agree = logits_spread(logits[..., :v], logits1[..., :v])
+        log(f"[mesh] 12c {LLM_ARCH} decode with the {LLM_CACHE}-slot cache "
+            f"split {topo.axis_sizes[axis]} x "
+            f"{LLM_CACHE // topo.axis_sizes[axis]} over {axis} on {shape}: "
+            f"{LLM_DECODE} steps fed the one-device run's tokens, mean "
+            f"{ms:.3f} ms a step against {one_ms:.3f} on one device; layer "
+            f"0's decoded K/V bitwise {same}; full-depth logits max |diff| "
+            f"over max |logit| {spread:.4g} (chaotic depth: printed), "
+            f"argmax equal on {agree:.3f}")
+        if not same:
+            raise AssertionError("12c: layer 0's decoded K/V differ")
+        del cache, logits, mesh
+    del one, cache1, logits1
+    torch.cuda.empty_cache()
+    # float32: in bf16 the flash-decode rounds its unnormalised weights
+    # for the PV product where the one-device decode rounds the
+    # normalised ones (the reference's two decodes do the same), a bf16
+    # rounding of each layer's attention output
+    cut = dataclasses.replace(cfg, n_layers=LLM_CHECK_LAYERS,
+                              dtype="float32")
+    gen.manual_seed(LLM_SEED)
+    one = build_model(cut, device=device).init(gen)
+    prompts = torch.randint(0, v, (b, p), generator=gen, device=device)
+    _, logits1, fed, _ = run(one)
+    for shape, axis in (((1, 4), "model"), ((4, 1), "data")):
+        mesh = on_topology(one, mesh_topology(
+            cut, shape, ("data", "model"), device, seq_sharded_kv=True,
+            kv_seq_axis=axis))
+        _, logits, _, _ = run(mesh, fed)
+        d = logits_spread(logits[:, 0, :v], logits1[:, 0, :v])[0]
+        worst = max(logits_spread(logits[:, i, :v], logits1[:, i, :v])[0]
+                    for i in range(LLM_DECODE))
+        log(f"[mesh] 12c {LLM_ARCH} cut to {LLM_CHECK_LAYERS} layers, "
+            f"float32, decode over {axis} on {shape} against one device: first step "
+            f"max |diff| over max |logit| {d:.4g} (bound {LLM_DECODE_TOL}, "
+            f"phase 9's first-step gate); over the {LLM_DECODE} steps at "
+            f"most {worst:.4g}")
+        if not d <= LLM_DECODE_TOL:
+            raise AssertionError("12c: the cut model's decode disagrees")
+    del one, logits1
+    torch.cuda.empty_cache()
+
+
+def mesh_train(device, card, train_ms) -> None:
+    """12d: make_dp_train_step on olmoe-1b-7b at full width cut to
+    DP_LAYERS layers over a DP_SHARDS-shard ("data",) mesh."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import MeshSpec, OptimizerConfig
+    from repro_torch.configs.base import ShardingConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import make_mesh_from_spec
+    from repro_torch.train.compression import error_feedback, init_error
+    from repro_torch.train.step import (
+        init_train_state,
+        make_dp_train_step,
+        make_train_step,
+    )
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DP_LAYERS)
+    ocfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    mesh = make_mesh_from_spec(MeshSpec((DP_SHARDS,), ("data",)),
+                               mesh_devices(DP_SHARDS, device))
+    batches = [synth_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, i)
+               for i in range(TRAIN_DATA)]
+
+    def train(compress=True, steps=DP_STEPS, timed=False):
+        model = build_model(cfg, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(LLM_SEED)
+        state = init_train_state(model, gen, ocfg)
+        state["error"] = init_error(state["params"])
+        step = make_dp_train_step(model, ocfg, mesh, compress=compress)
+        losses, ms, out = [], [], [None]
+        for i in range(steps):
+            def run():
+                out[0] = step(state, batches[i % TRAIN_DATA])
+
+            ms.append(cuda_ms(run))
+            state, m = out[0]
+            losses.append(float(m["loss"]))
+        return model, state, losses, ms
+
+    model, state, losses, ms = train()
+    n_params = sum(p.numel() for p in model.parameters())
+    state_gb = sum(t.numel() * t.element_size() for t in tree_leaves(
+        {k: state[k] for k in ("params", "opt")})) / 1e9
+    err_gb = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(state["error"])) / 1e9
+    step_ms = float(np.mean(ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[mesh] 12d {TRAIN_ARCH} cut to {DP_LAYERS} of {full.n_layers} "
+        f"layers ({n_params:,} parameters, state {state_gb:.3f} GB, error "
+        f"buffers {err_gb:.3f} GB for {DP_SHARDS} shards) on a "
+        f"{DP_SHARDS}-shard (data,) mesh of "
+        f"{[str(d) for d in mesh.device_list()]}, compress=True: loss by "
+        f"step {[round(x, 4) for x in losses]}; first step {ms[0]:.1f} ms, "
+        f"then mean {step_ms:.1f} ms, {tokens / (step_ms / 1e3):.5g} "
+        f"tokens/s (phase 11's one-device step on 4 layers at grad_accum "
+        f"2: {train_ms:.1f} ms)")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("12d: the loss does not fall")
+    final = [t.clone() for t in tree_leaves(state["params"])]
+    final_err = [t.clone() for t in tree_leaves(state["error"][-1])]
+    # the compression's own cost: each shard's error feedback over every
+    # leaf (the float32 mu standing in for a gradient), CUDA events
+    g = tree_leaves(state["opt"].mu)
+    errs = [tree_leaves(e) for e in state["error"]]
+    comp_ms = cuda_ms(lambda: [error_feedback(a, e) for es in errs
+                               for a, e in zip(g, es)])
+    # the same model one device at grad_accum DP_SHARDS, same state
+    one_step = make_train_step(model, ocfg, ShardingConfig(
+        grad_accum=DP_SHARDS))
+    one = []
+    for i in range(3):
+        box = [None]
+        one.append(cuda_ms(lambda: box.__setitem__(0, one_step(
+            {"params": state["params"], "opt": state["opt"]},
+            batches[i % TRAIN_DATA]))))
+    log(f"[mesh] 12d the compression's own cost: {comp_ms:.2f} ms a step "
+        f"({DP_SHARDS} shards' error feedback over every leaf); the same "
+        f"model on one device at grad_accum {DP_SHARDS}: mean "
+        f"{float(np.mean(one[1:])):.1f} ms a step")
+    del model, state, g, errs, one_step
+    torch.cuda.empty_cache()
+    _, state, losses2, _ = train()
+    same = (losses2 == losses and all(
+        torch.equal(a, c) for a, c in zip(final,
+                                           tree_leaves(state["params"])))
+        and all(torch.equal(a, c) for a, c in zip(
+            final_err, tree_leaves(state["error"][-1]))))
+    log(f"[mesh] 12d a rerun from the same seed: losses, parameters and "
+        f"the last shard's error buffers bitwise {same}")
+    if not same:
+        raise AssertionError("12d: a rerun of the DP step differs")
+    del state, final, final_err
+    torch.cuda.empty_cache()
+
+    # compress=False against make_train_step on the whole batch: float32,
+    # aux off, nothing drops (the aux and the drops are per-shard); at
+    # factor E/k the capacity is the token count
+    check = dataclasses.replace(
+        cfg, dtype="float32", router_aux_loss=0.0,
+        capacity_factor=cfg.n_experts / cfg.n_experts_per_token)
+    after = []
+    for kind in ("dp", "one"):
+        model = build_model(check, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(LLM_SEED)
+        state = init_train_state(model, gen, ocfg)
+        step = (make_dp_train_step(model, ocfg, mesh, compress=False)
+                if kind == "dp" else
+                make_train_step(model, ocfg, ShardingConfig(grad_accum=1)))
+        state, m = step(state, batches[0])
+        after.append((tree_leaves(state["params"]), float(m["loss"])))
+        if kind == "dp":
+            after[0] = ([t.clone() for t in after[0][0]], after[0][1])
+            del state, model
+            torch.cuda.empty_cache()
+    worst = max(float((a - c).abs().max())
+                for a, c in zip(after[0][0], after[1][0]))
+    log(f"[mesh] 12d compress=False over {DP_SHARDS} shards against "
+        f"make_train_step on the whole batch ({DP_LAYERS} layers, float32, "
+        f"aux off, nothing drops): loss {after[0][1]:.6f} and "
+        f"{after[1][1]:.6f}; parameters after one step max |diff| "
+        f"{worst:.3g} (bound {TRAIN_ACCUM_ATOL})")
+    if not worst <= TRAIN_ACCUM_ATOL:
+        raise AssertionError("12d: the uncompressed DP step disagrees with "
+                             "the one-device step")
+    del after, state, model
+    torch.cuda.empty_cache()
+
+
+def mesh_merge(device, obs_x, card) -> None:
+    """12e: merge_over_axis of phase 3's observables over an
+    MERGE_SHARDS-shard mesh against merge_blocks: bitwise."""
+    import torch
+
+    from repro_torch.configs.base import MeshSpec
+    from repro_torch.core.reduction import (
+        Welford,
+        blocked_welford,
+        merge_blocks,
+        merge_over_axis,
+    )
+    from repro_torch.sharding.rules import make_mesh_from_spec
+
+    obs = obs_x.to(torch.float32)
+    mesh = make_mesh_from_spec(MeshSpec((MERGE_SHARDS,), ("data",)),
+                               mesh_devices(MERGE_SHARDS, device))
+    rows = obs.shape[0] // MERGE_SHARDS
+    devs = mesh.device_list()
+    out = [None, None]
+
+    def sharded():
+        parts = [Welford(*(leaf[0] for leaf in blocked_welford(
+            obs[k * rows:(k + 1) * rows].to(devs[k]), 1)))
+            for k in range(MERGE_SHARDS)]
+        out[0] = merge_over_axis(parts, mesh, "data")[0]
+
+    def blocked():
+        out[1] = merge_blocks(blocked_welford(obs, MERGE_SHARDS))
+
+    sharded()
+    blocked()
+    s_ms, b_ms = cuda_ms(sharded), cuda_ms(blocked)
+    same = all(torch.equal(a.to(device), c) for a, c in zip(*out))
+    log(f"[mesh] 12e merge_over_axis of phase 3's {tuple(obs.shape)} "
+        f"observables over a {MERGE_SHARDS}-shard mesh: {s_ms:.3f} ms; "
+        f"merge_blocks of the same {MERGE_SHARDS} blocks {b_ms:.3f} ms; "
+        f"bitwise {same}")
+    if not same:
+        raise AssertionError("12e: merge_over_axis differs from "
+                             "merge_blocks")
+
+
+def phase_mesh(device, card, obs_x, train_ms) -> None:
+    """Phase 12: the multi-device pieces on a mesh of the visible cards,
+    or of repeated entries of the one card."""
+    import torch
+
+    n = torch.cuda.device_count()
+    log(f"[mesh] 12 {n} card(s) visible: meshes of "
+        + ("cuda:0..3" if n >= MESH_SHARDS else
+           f"repeated entries of {device}") + "; every shard's body runs in "
+        "mesh order on the host, its kernels on its card")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    t0 = time.perf_counter()
+    with sub_phase("12a olmoe-1b-7b EP on (1, 4)", card):
+        mesh_moe("12a", "olmoe-1b-7b", (1, 4), device, card,
+                 expert_parallel=True)
+    with sub_phase("12b deepseek-moe-16b TP-in-expert on (2, 2)", card):
+        mesh_moe("12b", "deepseek-moe-16b", (2, 2), device, card,
+                 expert_parallel=False)
+    with sub_phase("12c llama3-8b sequence-sharded decode", card):
+        mesh_llm(device, card)
+    with sub_phase("12d the data-parallel step", card):
+        mesh_train(device, card, train_ms)
+    with sub_phase("12e merge_over_axis", card):
+        mesh_merge(device, obs_x, card)
+    log(f"[mesh] phase 12 took {time.perf_counter() - t0:.1f} s; {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3458,9 +4096,10 @@ def main() -> int:
     phase_llm_parity(device)
     t_lm = time.perf_counter()
     phase_moe(device, card)
-    phase_train(device, card)
+    train_ms = phase_train(device, card)
     log(f"[moe+train] phases 10 and 11 took "
         f"{time.perf_counter() - t_lm:.1f} s")
+    phase_mesh(device, card, dense.pop("final_x"), train_ms)
     entries = [
         ("ssa_window", "ssa_window.cu", "src/repro/kernels/ssa_step.py:64",
          dense),

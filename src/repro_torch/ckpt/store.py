@@ -22,8 +22,10 @@ to the template's dtype and placed on its device; `AsyncWriter` saves a
 host snapshot in a background thread. bf16 leaves are stored as their
 uint16 bits with the manifest's dtype entry, as the reference writes
 them, and restored without `ml_dtypes`: files cross between the
-packages both ways. One device holds every leaf whole (the reference's
-placement by shardings is item 18d).
+packages both ways. `restore(..., shardings=)` places each leaf by its
+spec on a mesh (`sharding.collectives.shard`: one part a mesh position,
+views on repeated devices), so a file saved from one mesh restores onto
+another, as the reference's "elastic across mesh changes" restore.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.sharding.collectives import shard
 from repro_torch.tree import (
     tree_flatten_with_path,
     tree_map,
@@ -319,10 +322,15 @@ def _leaf_like(arr: np.ndarray, exotic: Optional[str], leaf):
     return arr.astype(dt) if dt is not None and arr.dtype != dt else arr
 
 
-def restore(template: Any, directory: str, step: Optional[int] = None) -> Any:
+def restore(template: Any, directory: str, step: Optional[int] = None,
+            shardings: Any = None) -> Any:
     """Restore into the structure of `template`: each leaf takes the
-    template leaf's dtype and device. Raises `CheckpointCorrupt` when
-    arrays.npz does not match the manifest's sha256."""
+    template leaf's dtype and device. With `shardings` (a tree of
+    `NamedSharding`s on the CURRENT mesh, shaped as `template`) each
+    leaf comes back as its parts, one a mesh position in row-major
+    order, split by its spec (`collectives.unshard` joins them). Raises
+    `CheckpointCorrupt` when arrays.npz does not match the manifest's
+    sha256."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -338,10 +346,17 @@ def restore(template: Any, directory: str, step: Optional[int] = None) -> Any:
             f"checksum mismatch vs manifest (stored "
             f"{manifest['sha256'][:12]}…, file {digest[:12]}…)")
     exotic = manifest.get("dtypes", {})
+    flat = tree_flatten_with_path(template)
+    sh_leaves = ([sh for _, sh in tree_flatten_with_path(shardings)]
+                 if shardings is not None else [None] * len(flat))
     out = []
     with np.load(npz_path) as data:
-        for key, leaf in tree_flatten_with_path(template):
-            out.append(_leaf_like(data[key], exotic.get(key), leaf))
+        for (key, leaf), sh in zip(flat, sh_leaves):
+            arr = _leaf_like(data[key], exotic.get(key), leaf)
+            if sh is not None:
+                arr = shard(torch.as_tensor(arr).to(
+                    sh.mesh.device_list()[0]), sh.spec, sh.mesh)
+            out.append(arr)
     return tree_unflatten_like(template, out)
 
 

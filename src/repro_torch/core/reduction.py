@@ -3,8 +3,9 @@
 
 Samples at fixed sim-time grid points fold into (count, mean, M2)
 Welford accumulators per (grid point, observable) while the raw window
-is discarded. `merge` is Chan's parallel merge; `blocked_welford` /
-`merge_blocks` pin the merge tree to a fixed number of contiguous
+is discarded. `merge` is Chan's parallel merge; `merge_over_axis` merges
+the accumulators of a mesh axis's shards in one psum; `blocked_welford`
+/ `merge_blocks` pin the merge tree to a fixed number of contiguous
 instance blocks so a record depends on the block count only, and
 `gather_blocks_over_axis` assembles a sharded pool's block partials
 into the same stack.
@@ -58,6 +59,31 @@ def merge(a: Welford, b: Welford) -> Welford:
     mean = a.mean + d * (b.n / safe)
     m2 = a.m2 + b.m2 + d * d * (a.n * b.n / safe)
     return Welford(n=n, mean=torch.where(n > 0, mean, 0.0), m2=m2)
+
+
+def merge_over_axis(parts: list, mesh, axis) -> list:
+    """Merge per-shard accumulators (a list of `Welford`, one per mesh
+    position) across a mesh axis with the psum identities
+      N = Σn;  MEAN = Σ(n·mean)/N;  M2 = Σ m2 + Σ n·mean² − N·MEAN²
+    (algebraically the pairwise Chan merges, but one psum), each Σ left
+    to right along the axis (`collectives.psum`), as `merge_blocks`
+    sums its blocks. Returns one merged accumulator per position."""
+    from repro_torch.sharding.collectives import psum
+
+    n = psum([a.n for a in parts], mesh, axis)
+    s1 = psum([a.n * a.mean for a in parts], mesh, axis)
+    s2 = psum([a.m2 + a.n * a.mean * a.mean for a in parts], mesh, axis)
+    out, done = [], {}
+    for ni, s1i, s2i in zip(n, s1, s2):
+        key = (id(ni), id(s1i), id(s2i))
+        if key not in done:
+            safe = torch.clamp_min(ni, 1.0)
+            mean = s1i / safe
+            m2 = s2i - ni * mean * mean
+            done[key] = Welford(n=ni, mean=torch.where(ni > 0, mean, 0.0),
+                                m2=torch.clamp_min(m2, 0.0))
+        out.append(done[key])
+    return out
 
 
 def blocked_welford(obs, n_blocks: int) -> Welford:

@@ -16,6 +16,13 @@ on a leading axis under "stack"), named leaf for leaf as the port's
 `CausalLM` names its parameters. bfloat16 leaves travel as their bits.
 So does the trainer's state, {"params", "opt": AdamWState(step, mu, nu,
 master)}.
+
+Per-shard state crosses as the reference's per-device buffers (an
+array's `addressable_shards`), keyed by each buffer's mesh position (an
+index per mesh axis): `parts_from_reference` / `parts_to_reference` map
+them to the port's parts (one a position, row-major) and back; the
+data-parallel step's error buffers (one tree a shard) and a
+sequence-sharded cache leaf (joined by its spec) have their own pair.
 """
 from __future__ import annotations
 
@@ -25,7 +32,12 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.gillespie import LaneState
 from repro_torch.core.reactions import ReactionSystem
-from repro_torch.tree import tree_flatten_with_path, tree_map
+from repro_torch.sharding.collectives import positions, shard, unshard
+from repro_torch.tree import (
+    tree_flatten_with_path,
+    tree_map,
+    tree_unflatten_like,
+)
 
 SYSTEM_FIELDS = ("reactant_idx", "reactant_coef", "delta", "rates", "x0",
                  "species_names", "reaction_names")
@@ -157,3 +169,67 @@ def train_state_to_reference(state) -> dict:
     return {"params": tree_map(_to_array, state["params"]),
             "opt": AdamWState(*(tree_map(_to_array, getattr(opt, f))
                                 for f in AdamWState._fields))}
+
+
+# ---------------------------------------------------------------------------
+# Per-shard state: the reference's per-device buffers <-> the port's parts
+# ---------------------------------------------------------------------------
+
+
+def parts_from_reference(buffers: dict, mesh) -> list:
+    """{mesh position: numpy buffer} (every position of `mesh`) as the
+    port's parts in row-major mesh order, each on its position's
+    device."""
+    devs = mesh.device_list()
+    return [_to_tensor(buffers[pos], devs[i])
+            for i, pos in enumerate(positions(mesh))]
+
+
+def parts_to_reference(parts: list, mesh) -> dict:
+    """The port's parts as {mesh position: numpy buffer}."""
+    return {pos: _to_array(t) for pos, t in zip(positions(mesh), parts)}
+
+
+def _dp_shards(mesh, axis: str) -> list:
+    """(position, device) of each data-parallel shard along `axis` (the
+    other axes at index 0), in shard order."""
+    at = mesh.axis_names.index(axis)
+    return [(pos, dev) for pos, dev in zip(positions(mesh),
+                                           mesh.device_list())
+            if all(p == 0 for j, p in enumerate(pos) if j != at)]
+
+
+def dp_errors_from_reference(buffers: dict, params, mesh,
+                             axis: str = "data") -> list:
+    """The reference DP step's error state as `make_dp_train_step`'s
+    "error" (one tree a shard, on the shard's device). buffers: {leaf
+    path ("/"-join, as the store names leaves): {mesh position: numpy
+    buffer}}; params: a tree of the error state's structure."""
+    paths = [path for path, _ in tree_flatten_with_path(params)]
+    return [tree_unflatten_like(params, [_to_tensor(buffers[p][pos], dev)
+                                         for p in paths])
+            for pos, dev in _dp_shards(mesh, axis)]
+
+
+def dp_errors_to_reference(errors: list, mesh, axis: str = "data") -> dict:
+    """`make_dp_train_step`'s error state as {leaf path: {mesh position:
+    numpy buffer}} for the shards' positions."""
+    out: dict = {}
+    for (pos, _), tree in zip(_dp_shards(mesh, axis), errors):
+        for path, leaf in tree_flatten_with_path(tree):
+            out.setdefault(path, {})[pos] = _to_array(leaf)
+    return out
+
+
+def sharded_from_reference(buffers: dict, spec: tuple, mesh, device=None
+                           ) -> torch.Tensor:
+    """A leaf split by `spec` on `mesh` (a sequence-sharded cache leaf),
+    given as {mesh position: numpy buffer}, joined into one tensor on
+    `device` (default: the mesh's first device)."""
+    return unshard(parts_from_reference(buffers, mesh), spec, mesh, device)
+
+
+def sharded_to_reference(t: torch.Tensor, spec: tuple, mesh) -> dict:
+    """A tensor's split by `spec` on `mesh` as {mesh position: numpy
+    buffer}, the reference's per-device buffers of that layout."""
+    return parts_to_reference(shard(t, spec, mesh), mesh)

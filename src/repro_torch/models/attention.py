@@ -8,8 +8,12 @@ mask at NEG_INF = -1e30, each KV head repeated over its query heads
 FULL_ATTN_MAX_SEQ positions and chunked above it. No TPU kernel computes
 any of this in the reference, and no finished attention kernel
 (`scaled_dot_product_attention` or another) stands in for it here.
-The sequence-sharded decode (`decode_attention_seqsharded`) is ROADMAP
-queue 1 item 18d.
+
+`decode_attention_seqsharded` is the reference's distributed
+flash-decode over a mesh axis: the cache split on its sequence axis,
+each shard's partial softmax, an exact combine by `pmax` and `psum`
+(`sharding/collectives.py`), the shards run in mesh order. Its
+projections run unsplit on the topology's first device (item 18e).
 """
 from __future__ import annotations
 
@@ -18,7 +22,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamDef, einsum
 from repro_torch.models.rope import apply_rope
-from repro_torch.sharding.rules import EMBED, HEAD_DIM, KV_HEADS, Q_HEADS
+from repro_torch.sharding.rules import (
+    BATCH,
+    EMBED,
+    HEAD_DIM,
+    KV_HEADS,
+    KV_SEQ,
+    Q_HEADS,
+)
 
 NEG_INF = -1e30
 
@@ -187,3 +198,84 @@ def write_kv_slot(k_cache, v_cache, k_new, v_new, slot):
     k_cache[bidx, slot] = k_new[:, 0].to(k_cache.dtype)
     v_cache[bidx, slot] = v_new[:, 0].to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def decode_attention_seqsharded(q, k_cache, v_cache, k_new, v_new,
+                                slot, valid_len, topo):
+    """Distributed flash-decode with in-shard cache writes.
+
+    The KV cache is split on its sequence axis across one mesh axis
+    (`topo.rules[KV_SEQ]`: `data` for long-context small-batch, `model`
+    for big-cache batched decode). Each shard writes the new token's K/V
+    iff it owns `slot` (the other shards write back their own old value,
+    as the reference does), computes its partial (max, sum-exp,
+    weighted V), and the partials combine exactly through `pmax` and
+    `psum`, with a guard for shards whose positions are all masked. When
+    the axis is `data` the batch is not split.
+
+    The caches are written in place: on repeated devices each shard's
+    slice is a view of the one cache tensor; a slice on another device
+    is a copy, written back after its shard's write.
+
+    Returns (o, k_cache, v_cache).
+    """
+    from repro_torch.sharding import collectives as col
+
+    mesh = topo.mesh
+    axis = topo.rules[KV_SEQ]
+    if axis not in topo.axis_sizes:
+        raise ValueError("the sequence-sharded decode needs a KV_SEQ axis "
+                         "on the mesh")
+    h = q.shape[-2]
+    scale = q.shape[-1] ** -0.5
+    s_local = k_cache.shape[1] // topo.axis_sizes[axis]
+    batch_rule = topo.rules[BATCH] if axis != "data" else None
+    cache_spec = (batch_rule, axis, None, None)
+    rep = (batch_rule, None, None, None)
+    caches = [col.shard(c, cache_spec, mesh) for c in (k_cache, v_cache)]
+    q_i, kn_i, vn_i = (col.shard(t, rep, mesh) for t in (q, k_new, v_new))
+    slot_i, vl_i = (col.shard(t, (batch_rule,), mesh)
+                    for t in (slot, valid_len))
+
+    ms, ls, os_ = [], [], []
+    for i, pos in enumerate(col.positions(mesh)):
+        idx = col.axis_index(mesh, axis, pos)
+        slot_l, vl = slot_i[i], vl_i[i]
+        dev = slot_l.device
+        # write the new token's K/V into the owning shard's slice
+        owns = torch.div(slot_l, s_local, rounding_mode="floor") == idx
+        lslot = slot_l % s_local
+        bidx = torch.arange(slot_l.shape[0], device=dev)
+        for full, parts, new in zip((k_cache, v_cache), caches,
+                                    (kn_i[i], vn_i[i])):
+            loc = parts[i]
+            loc[bidx, lslot] = torch.where(owns[:, None, None],
+                                           new[:, 0].to(loc.dtype),
+                                           loc[bidx, lslot])
+            if loc.device != full.device:
+                b0 = (col.axis_index(mesh, batch_rule, pos) * loc.shape[0]
+                      if batch_rule else 0)
+                full[b0:b0 + loc.shape[0],
+                     idx * s_local:(idx + 1) * s_local].copy_(loc)
+        k_l = _expand_kv(caches[0][i], h)
+        v_l = _expand_kv(caches[1][i], h)
+        logits = einsum("bqhk,bshk->bhqs", q_i[i], k_l,
+                        dtype=torch.float32) * scale
+        gpos = idx * s_local + torch.arange(s_local, device=dev)
+        valid = (gpos[None, :] < vl[:, None]) | (gpos[None, :]
+                                                 == slot_l[:, None])
+        logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+        m = logits.amax(dim=-1, keepdim=True)  # (b,h,q,1) local max
+        p = torch.exp(logits - m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        os_.append(einsum("bhqs,bshk->bhqk", p.to(v_l.dtype), v_l,
+                          dtype=torch.float32))
+        # exact combine across shards (guard all-masked shards)
+        ms.append(torch.where(torch.isfinite(m), m, NEG_INF))
+    g_m = col.pmax(ms, mesh, axis)
+    corr = [torch.exp(m - g) for m, g in zip(ms, g_m)]
+    l_g = col.psum([l * c for l, c in zip(ls, corr)], mesh, axis)
+    o_g = col.psum([o * c for o, c in zip(os_, corr)], mesh, axis)
+    out = [(o / torch.clamp_min(l, 1e-30)).transpose(1, 2).to(q.dtype)
+           for o, l in zip(o_g, l_g)]
+    return col.unshard(out, rep, mesh, q.device), k_cache, v_cache

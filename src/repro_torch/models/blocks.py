@@ -9,6 +9,12 @@ reference stacks them for `lax.scan`, so the two packages' parameter
 and cache trees map one to one. A Python loop over the repeats replaces
 the scan; the router's aux loss is summed over the prefix, then over
 the repeats in order, as the scan carries it.
+
+Each block takes the model's `Topology`: the FFN goes through
+`apply_moe(..., topo)` (its multi-device paths on a mesh of more than
+one device), and decode through `decode_attention_seqsharded` whenever
+`topo.rules[KV_SEQ]` is set, as the reference routes them.
+`block_cache_logical` names the cache leaves' axes.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.mlp import apply_mlp, mlp_defs
 from repro_torch.models.moe import apply_moe, moe_defs
 from repro_torch.models.norms import apply_norm, norm_defs
+from repro_torch.sharding.rules import BATCH, KV_HEADS, KV_SEQ, Topology
 
 # ---------------------------------------------------------------------------
 # Layer grouping
@@ -88,26 +95,38 @@ def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     raise ValueError(spec.mixer)
 
 
+def block_cache_logical(cfg: ModelConfig, spec: LayerSpec):
+    """Logical axes for each cache leaf (mirrors init_block_cache)."""
+    if spec.mixer == MIXER_ATTN:
+        return {"k": (BATCH, KV_SEQ, KV_HEADS, None),
+                "v": (BATCH, KV_SEQ, KV_HEADS, None)}
+    raise ValueError(spec.mixer)
+
+
 def _apply_attn_full(params, x, cfg, positions):
     q, k, v = attn_mod.project_qkv(params, x, cfg, positions)
     o = attn_mod.attention(q, k, v, causal=True)
     return attn_mod.out_proj(params, o), {"k": k, "v": v}
 
 
-def _apply_attn_decode(params, x, cfg, cache, pos):
+def _apply_attn_decode(params, x, cfg, topo, cache, pos):
     """x: (B,1,d); cache k/v (B,S,KV,hd); pos (B,) current write index."""
     positions = pos[:, None]
     q, k_new, v_new = attn_mod.project_qkv(params, x, cfg, positions)
     s = cache["k"].shape[1]
     slot = torch.clamp_max(pos, s - 1)  # ring write
-    k_c, v_c = attn_mod.write_kv_slot(cache["k"], cache["v"], k_new, v_new,
-                                      slot)
-    o = attn_mod.decode_attention(q, k_c, v_c, slot, valid_len=pos)
+    if topo is not None and topo.rules.get(KV_SEQ):
+        o, k_c, v_c = attn_mod.decode_attention_seqsharded(
+            q, cache["k"], cache["v"], k_new, v_new, slot, pos, topo)
+    else:
+        k_c, v_c = attn_mod.write_kv_slot(cache["k"], cache["v"], k_new,
+                                          v_new, slot)
+        o = attn_mod.decode_attention(q, k_c, v_c, slot, valid_len=pos)
     return attn_mod.out_proj(params, o), {"k": k_c, "v": v_c}
 
 
-def apply_block(params, x, cfg: ModelConfig, spec: LayerSpec, *,
-                mode: str = "full", positions=None,
+def apply_block(params, x, cfg: ModelConfig, topo: Optional[Topology],
+                spec: LayerSpec, *, mode: str = "full", positions=None,
                 cache: Optional[dict] = None, pos=None):
     """Returns (x, new_cache, aux).
 
@@ -121,7 +140,8 @@ def apply_block(params, x, cfg: ModelConfig, spec: LayerSpec, *,
     if spec.mixer != MIXER_ATTN:
         raise ValueError(spec.mixer)
     if mode == "decode":
-        mix_out, kv = _apply_attn_decode(params["mixer"], h, cfg, cache, pos)
+        mix_out, kv = _apply_attn_decode(params["mixer"], h, cfg, topo,
+                                         cache, pos)
         new_cache.update(kv)
     else:
         mix_out, kv = _apply_attn_full(params["mixer"], h, cfg, positions)
@@ -131,7 +151,7 @@ def apply_block(params, x, cfg: ModelConfig, spec: LayerSpec, *,
     def ffn(h_in):
         nonlocal aux
         if spec.ffn == FFN_MOE:
-            out, aux_l = apply_moe(params["ffn"], h_in, cfg)
+            out, aux_l = apply_moe(params["ffn"], h_in, cfg, topo)
             aux = aux + aux_l
             return out
         return apply_mlp(params["ffn"], h_in, cfg)
@@ -210,8 +230,9 @@ def stack_cache_init(cfg: ModelConfig, specs, batch: int, cache_len: int,
     return cache
 
 
-def apply_stack(params, x, cfg: ModelConfig, specs, *, mode="full",
-                positions=None, cache=None, pos=None):
+def apply_stack(params, x, cfg: ModelConfig, topo: Optional[Topology],
+                specs, *, mode="full", positions=None, cache=None,
+                pos=None):
     """Run the full layer stack. Returns (x, new_cache, aux).
 
     In "decode" mode each layer's K/V slot is written into `cache` in
@@ -227,7 +248,7 @@ def apply_stack(params, x, cfg: ModelConfig, specs, *, mode="full",
 
     for i, spec in enumerate(groups.prefix):
         c = cache["prefix"][i] if cache is not None else None
-        x, nc, aux = apply_block(params["prefix"][i], x, cfg, spec,
+        x, nc, aux = apply_block(params["prefix"][i], x, cfg, topo, spec,
                                  mode=mode, positions=positions, cache=c,
                                  pos=pos)
         new_cache["prefix"].append(nc)
@@ -246,7 +267,7 @@ def apply_stack(params, x, cfg: ModelConfig, specs, *, mode="full",
             c = (_map(lambda a: a[r], cache["stack"][f"l{j}"])
                  if cache is not None else None)
             x, ncs[f"l{j}"], aux = apply_block(
-                p, x, cfg, spec, mode=mode, positions=positions, cache=c,
+                p, x, cfg, topo, spec, mode=mode, positions=positions, cache=c,
                 pos=pos)
             aux_total = aux_total + aux
         per_repeat.append(ncs)

@@ -21,6 +21,16 @@ reference's weights over leaf for leaf. They do not require grad:
 `forward`, `prefill` and `decode_step` serve without autograd, and
 `loss` is differentiable in an explicit parameter tree
 (`train.step.make_train_step` passes one that requires grad).
+
+On a `Topology` of more than one device the MoE FFN takes its
+multi-device paths and decode its sequence-sharded path where the
+topology's rules say so; the dense layers (embedding, norms, attention
+projections, MLP, logits) run unsplit on the mesh's first device, where
+the parameters live. `param_shardings` and `cache_shardings` give the
+reference's specs; placing the dense layers by them (tensor-parallel
+attention and MLP, FSDP) is ROADMAP queue 1 item 18e. A
+sequence-sharded cache is one tensor on the first device whose slices
+by its spec are the shards' caches.
 """
 from __future__ import annotations
 
@@ -38,9 +48,18 @@ from repro_torch.models.common import (
     flatten_defs,
     init_one,
     matmul,
+    param_shardings,
 )
 from repro_torch.models.norms import apply_norm, norm_defs
-from repro_torch.sharding.rules import EMBED, VOCAB, Topology
+from repro_torch.sharding.rules import (
+    EMBED,
+    KV_SEQ,
+    LAYERS,
+    VOCAB,
+    Topology,
+    smoke_topology,
+)
+from repro_torch.tree import tree_flatten_with_path
 
 PAD_LOGIT = -1e30  # padded vocabulary entries
 
@@ -91,17 +110,19 @@ def _tree(module: nn.Module) -> dict:
 
 
 class CausalLM(nn.Module):
-    """The model on one device: the CUDA device unless `device` (or the
-    topology's device) says otherwise. The parameters are allocated, not
-    initialised: call `init(generator)` or `load_state_dict`."""
+    """The model on the topology's first device, else on `device`
+    (default: the CUDA device) under the one-device topology. The
+    parameters are allocated, not initialised: call `init(generator)` or
+    `load_state_dict`."""
 
     def __init__(self, cfg: ModelConfig, topo: Optional[Topology] = None,
                  *, device=None):
         super().__init__()
         self.cfg = cfg
         self.specs = cfg.layer_specs()
-        self.device = (topo.device if topo is not None
-                       else resolve_device(device))
+        self.topo = (topo if topo is not None
+                     else smoke_topology(cfg, device=resolve_device(device)))
+        self.device = self.topo.device
         _register(self, model_defs(cfg), DTYPES[cfg.dtype], self.device)
 
     # ------------------------------------------------------------- params
@@ -124,15 +145,22 @@ class CausalLM(nn.Module):
     def params(self) -> dict:
         return _tree(self)
 
+    def param_shardings(self) -> dict:
+        """Each parameter's `NamedSharding` on the topology's mesh, as
+        the reference's `param_shardings` resolves it (fsdp=True)."""
+        return param_shardings(self.defs(), self.topo)
+
     # ------------------------------------------------------------ forward
-    def _tensor(self, a, dtype=None):
-        return torch.as_tensor(a, dtype=dtype, device=self.device)
+    def _tensor(self, a, dtype=None, device=None):
+        return torch.as_tensor(a, dtype=dtype, device=device or self.device)
 
     def _embed(self, params, batch):
         cfg = self.cfg
-        tok_emb = params["embed"][self._tensor(batch["tokens"], torch.long)]
+        dev = params["embed"].device  # a data-parallel replica's device
+        tok_emb = params["embed"][self._tensor(batch["tokens"], torch.long,
+                                               dev)]
         if cfg.frontend != "none" and "embeds" in batch:
-            return torch.cat([self._tensor(batch["embeds"]).to(
+            return torch.cat([self._tensor(batch["embeds"], device=dev).to(
                 tok_emb.dtype), tok_emb], dim=1)
         return tok_emb
 
@@ -152,7 +180,7 @@ class CausalLM(nn.Module):
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)[None, :]
         x, cache, aux = blocks.apply_stack(params["blocks"], x, self.cfg,
-                                           self.specs, mode=mode,
+                                           self.topo, self.specs, mode=mode,
                                            positions=positions)
         return self._logits(params, x), cache, aux
 
@@ -175,12 +203,45 @@ class CausalLM(nn.Module):
         logits, cache, _ = self.forward(batch, mode="prefill")
         if cache_len is not None:
             cache = blocks.pad_cache(cache, cache_len)
-        return cache, logits[:, -1:]
+        return self._place_cache(cache), logits[:, -1:]
 
     def init_cache(self, batch_size: int, cache_len: int):
-        return blocks.stack_cache_init(self.cfg, self.specs, batch_size,
-                                       cache_len, DTYPES[self.cfg.dtype],
-                                       self.device)
+        return self._place_cache(blocks.stack_cache_init(
+            self.cfg, self.specs, batch_size, cache_len,
+            DTYPES[self.cfg.dtype], self.device))
+
+    def cache_shardings(self) -> dict:
+        """Each cache leaf's `NamedSharding` (`block_cache_logical`, with
+        the stacked axis first under "stack"), as the reference's
+        `cache_shardings`."""
+        groups = blocks.layer_groups(self.specs)
+
+        def entry(spec, stacked: bool):
+            logical = blocks.block_cache_logical(self.cfg, spec)
+            return {k: self.topo.named((LAYERS, *ax) if stacked else ax)
+                    for k, ax in logical.items()}
+
+        out: dict = {"prefix": [entry(s, False) for s in groups.prefix]}
+        if groups.n_repeat:
+            out["stack"] = {f"l{j}": entry(s, True)
+                            for j, s in enumerate(groups.pattern)}
+        return out
+
+    def _place_cache(self, cache):
+        """The cache as `cache_shardings` places it: one tensor on the
+        first device, which the sequence-sharded decode splits by its
+        spec (views on repeated devices). A cache length that does not
+        split over the KV_SEQ axis is refused here rather than at the
+        first decode step."""
+        axis = self.topo.rules[KV_SEQ]
+        if axis:
+            n = self.topo.axis_sizes[axis]
+            for path, leaf in tree_flatten_with_path(cache):
+                if leaf.shape[-3] % n:
+                    raise ValueError(
+                        f"cache leaf {path}: {leaf.shape[-3]} slots do not "
+                        f"split over {axis} ({n} shards)")
+        return cache
 
     @torch.no_grad()
     def decode_step(self, cache, token, pos):
@@ -189,7 +250,8 @@ class CausalLM(nn.Module):
         params = self.params()
         x = params["embed"][self._tensor(token, torch.long)]
         x, new_cache, _ = blocks.apply_stack(
-            params["blocks"], x, self.cfg, self.specs, mode="decode",
+            params["blocks"], x, self.cfg, self.topo, self.specs,
+            mode="decode",
             cache=cache, pos=self._tensor(pos, torch.long))
         return self._logits(params, x), new_cache
 

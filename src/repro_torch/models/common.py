@@ -107,6 +107,16 @@ def init_params(defs: DefTree, dtype_name: str, generator: torch.Generator,
     return build(defs, "")
 
 
+def param_shardings(defs: DefTree, topo) -> Any:
+    """Each ParamDef's `NamedSharding` on the topology's mesh (its
+    logical axes resolved with fsdp=True), in the DefTree's structure."""
+    if isinstance(defs, ParamDef):
+        return topo.named(defs.logical, fsdp=True, shape=defs.shape)
+    if isinstance(defs, dict):
+        return {k: param_shardings(v, topo) for k, v in defs.items()}
+    return [param_shardings(v, topo) for v in defs]
+
+
 def param_bytes(defs: DefTree, dtype_name: str) -> int:
     dt = DTYPES[dtype_name]
     total = 0

@@ -73,10 +73,11 @@ def kernel_launches() -> dict:
 class WorkerSupervisor(RunSupervisor):
     """RunSupervisor over one shard: builds the engine through the shard
     seam (global key rows, sliced rates and groups, partials on) on its
-    device, and feeds the heartbeat from the drive loop."""
+    device, and feeds the heartbeat from the drive loop. device as for
+    RunSupervisor: None is the CUDA device, and raises without one."""
 
     def __init__(self, experiment, recovery: Recovery, shard: tuple,
-                 shard_index: int, heartbeat_path: str, device="cpu"):
+                 shard_index: int, heartbeat_path: str, device=None):
         super().__init__(experiment, recovery, device=device)
         self._shard = tuple(shard)
         self._shard_index = int(shard_index)

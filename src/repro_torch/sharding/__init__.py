@@ -1,1 +1,2 @@
-"""Logical axis names and the one-device topology."""
+"""Logical axis names, meshes of (possibly repeated) devices, the
+per-axis layout rules and the in-process collectives."""

@@ -1,4 +1,4 @@
-"""Training substrate on one device: the optimizer, the train step with
-gradient accumulation, int8 quantisation and the crash drill; port of
-`repro/train` (the data-parallel step and `compressed_psum` are ROADMAP
-queue 1 item 18d)."""
+"""Training substrate: the optimizer, the train step with gradient
+accumulation, the explicit data-parallel step over a mesh axis with the
+int8 error-feedback reduction (`compressed_psum`), and the crash drill;
+port of `repro/train`."""

@@ -7,7 +7,9 @@ ones, and each window kernel's path through supersteps (pinned rings,
 one host sync per block), through a checkpoint and resume, and through
 four shards on the one card (restores across shard counts, supervised
 drills), and a farm of two worker processes on the one card, bit for
-bit on one device.
+bit on one device; the LM module, the trainer and the multi-device
+paths (EP, TP-in-expert, the sequence-sharded decode, the data-parallel
+step over a mesh of repeated card entries) against the CPU.
 
 Every test needs a CUDA device and nvcc and skips itself without them.
 The file imports neither JAX nor the reference package, so it runs
@@ -1071,3 +1073,98 @@ def test_cuda_train_step_matches_cpu(cuda):
                                float(m_h["grad_norm"]), rtol=1e-4)
     for a, b in zip(tree_leaves(s_c["params"]), tree_leaves(s_h["params"])):
         assert float((a.cpu() - b).abs().max()) <= 2 * float(m_h["lr"])
+
+
+def _card_mesh(shape, axes, cuda):
+    """A mesh of repeated card devices (cuda:k when that many cards are
+    visible would place shards apart; these cases hold them on one)."""
+    from repro_torch.configs.base import MeshSpec
+    from repro_torch.sharding.rules import make_mesh_from_spec
+
+    return make_mesh_from_spec(MeshSpec(shape, axes),
+                               [cuda] * int(np.prod(shape)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,kw", [
+    ("olmoe-1b-7b", (1, 4), {}),
+    ("deepseek-moe-16b", (2, 2), dict(expert_parallel=False)),
+    ("llama3-8b", (1, 4), dict(seq_sharded_kv=True, kv_seq_axis="model")),
+    ("llama3-8b", (4, 1), dict(seq_sharded_kv=True, kv_seq_axis="data"))])
+def test_cuda_mesh_paths_match_cpu(cuda, name, shape, kw):
+    """A CausalLM on a mesh of four card entries (EP, TP-in-expert, the
+    sequence-sharded decode) against the same model on a CPU mesh:
+    prefill and one decode step within tests/test_torch_models.py's
+    2e-4 (float32 smoke configs, capacity factor 8), expert slices as
+    views of the card's weights."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShardingConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import Topology
+
+    cfg = dataclasses.replace(get_smoke_config(name), capacity_factor=8.0)
+    scfg = ShardingConfig(strategy="dp_tp", **kw)
+    host = build_model(cfg, Topology(_card_mesh(shape, ("data", "model"),
+                                                "cpu"), cfg, scfg))
+    host.init(torch.Generator().manual_seed(1))
+    card = build_model(cfg, Topology(_card_mesh(shape, ("data", "model"),
+                                                cuda), cfg, scfg))
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(3)
+    batch = _lm_batch(cfg, rng, b=4, s=16)
+    tok = rng.integers(0, cfg.vocab_size, (4, 1))
+    pos = np.full((4,), 16)
+    outs = []
+    for m in (host, card):
+        cache, last = m.prefill(batch, cache_len=20)
+        logits, _ = m.decode_step(cache, tok, pos)
+        outs.append((last, logits))
+    for a, b in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4)
+    if cfg.n_experts:
+        w = card.params()["blocks"]["stack"]["l0"]["ffn"]["w_up"]
+        parts = card.topo.split(w[0], ("model", None, None))
+        assert all(p.untyped_storage().data_ptr()
+                   == w.untyped_storage().data_ptr() for p in parts)
+
+
+@pytest.mark.cuda
+def test_cuda_dp_step_matches_cpu(cuda):
+    """make_dp_train_step over two card entries against the same step on
+    the CPU (olmoe smoke, float32): loss, each shard's error buffer and
+    the parameters after two steps."""
+    from repro_torch.configs.base import MeshSpec, OptimizerConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.sharding.rules import make_mesh_from_spec
+    from repro_torch.train.compression import init_error
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.step import make_dp_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_smoke_config("olmoe-1b-7b")
+    host, card = _lm_pair(cfg, cuda)
+    ocfg = OptimizerConfig()
+    out = []
+    for m, dev in ((host, "cpu"), (card, cuda)):
+        mesh = make_mesh_from_spec(MeshSpec((2,), ("data",)), [dev] * 2)
+        state = {"params": m.params(),
+                 "opt": init_opt_state(m.params(), ocfg),
+                 "error": init_error(m.params())}
+        step = make_dp_train_step(m, ocfg, mesh, compress=True)
+        for i in range(2):
+            state, metrics = step(state, synth_batch(cfg, 8, 32, i))
+        out.append((state, metrics))
+    (s_h, m_h), (s_c, m_c) = out
+    np.testing.assert_allclose(float(m_c["loss"]), float(m_h["loss"]),
+                               rtol=1e-5)
+    for a, b in zip(tree_leaves(s_c["params"]), tree_leaves(s_h["params"])):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5
+    assert len(s_c["error"]) == 2
+    for k in range(2):
+        for a, b in zip(tree_leaves(s_c["error"][k]),
+                        tree_leaves(s_h["error"][k])):
+            assert float((a.cpu() - b).abs().max()) <= \
+                2.02 * float(b.abs().max()) + 1e-9

@@ -240,6 +240,22 @@ def test_farm_sigstop_stall_drill(single, tmp_path):
     assert stalls and "stale" in stalls[0]["error"]
 
 
+def test_worker_supervisor_defaults_to_the_card(tmp_path, monkeypatch):
+    """A WorkerSupervisor built with no device resolves to the CUDA
+    device, as RunSupervisor does: on a host without one its build
+    raises resolve_device's error instead of running on the CPU."""
+    from repro_torch.runtime.worker import WorkerSupervisor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sup = WorkerSupervisor(_exp(steering=None), _recovery(T, tmp_path),
+                           (0, REPLICAS // 2, 1), 0,
+                           str(tmp_path / "hb.json"))
+    assert sup.device is None
+    with pytest.raises(RuntimeError, match="runs on a CUDA device by "
+                       "default and none is available"):
+        sup._build()
+
+
 @pytest.mark.parametrize("phase,stalled", [("init", False), ("run", True),
                                            ("done", False)])
 def test_stale_heartbeat_judged_by_phase(tmp_path, phase, stalled):

@@ -227,16 +227,6 @@ def test_apply_moe_matches_both_oracles(name, capacity_factor):
         assert (np.abs(routed_part) < 1e-6).mean() > 0.3
 
 
-def test_apply_moe_refuses_more_than_one_device():
-    class Mesh:
-        n_devices = 4
-
-    _, cfg = _cfg()
-    _, tp = _moe_params(_cfg()[0])
-    with pytest.raises(NotImplementedError, match="item 18d"):
-        moe.apply_moe(tp, torch.zeros(1, 4, cfg.d_model), cfg, Mesh())
-
-
 def test_matmul_float32_output_cases():
     """The 2-D float32-output product 18a relies on is unchanged (on the
     CPU: the product of the upcast operands), and the batched (E, C, d)
