@@ -204,7 +204,10 @@ Phases (each prints its own lines; any failure exits non-zero):
              the config's capacity (prefill rerun bitwise, drops by model
              shard, 32 greedy decode steps, logits finite); the config cut
              to 2 layers at factor E/k against the one-device model
-             (expert ids equal, logits within phase 9's bound). 12b:
+             (expert sets compared by layer: a changed set only at a
+             near-tie or downstream of an earlier change in its
+             sequence; rank swaps counted; logits within phase 9's
+             bound). 12b:
              deepseek-moe-16b the same on (2, 2) with expert_parallel off
              (TP-in-expert, shared experts split over model, the batch
              over data). 12c: llama3-8b decoding with its 544-slot cache
@@ -220,7 +223,30 @@ Phases (each prints its own lines; any failure exits non-zero):
              of phase 3's observables over 8 shards, bitwise against
              merge_blocks. Each sub-phase's wall and peak memory, and the
              phase's total.
-13. report — one JSON line of per-kernel numbers (launches: the main
+13. the dense layers placed by their specs (tensor-parallel attention,
+             MLP, embedding and logits, FSDP parameters) over four entries
+             of cuda:0, or cuda:0..3 where four cards are visible. 13a:
+             llama3-8b at full width (32 layers, bf16, phase 9's seed)
+             served on (1, 4) under dp_tp and on (2, 2) under fsdp_tp:
+             phase 9's 4 x 512 prompts and 32 decode steps fed the
+             one-device greedy run's tokens, the cache split by
+             cache_shardings; layer 0's K/V against the one-device run
+             (bitwise or within one bf16 rounding, printed which), a
+             rerun bitwise, the full-depth spread printed; prefill and
+             decode ms and peak memory beside phases 9 and 12c; the
+             2-layer float32 cut against one device within 4 times the
+             one-device model's own distance from its float64
+             evaluation (f64_llama; a bf16 model's printed beside it).
+             13b: the fsdp_tp train step of llama3-8b cut to 4 layers on
+             (2, 2): 10 steps of synth_batch 8 x 1024 at grad_accum 4
+             (the loss falls, a rerun bitwise), the step's ms beside the
+             same cut's one-device step, peak memory; the 2-layer
+             float32 cut: each parameter's gradient on one microbatch
+             against one device within 4 times the leaf's float32
+             control (one device against float64; bf16 printed), 3 steps'
+             losses against make_train_step, and its placed state saved
+             and restored (bitwise).
+14. report — one JSON line of per-kernel numbers (launches: the main
              paths', phase 6's counted sharded runs', the workers' of
              7a and 7b and phase 8's use_kernel=True runs, each from its
              own counter), the card line, then the result line.
@@ -2559,8 +2585,10 @@ def compare_routes(a, b, k, rows=None) -> tuple[int, float]:
 
 def layer_kvs(cache, kv) -> list:
     """The cache's `kv` leaf of every layer, in layer order."""
-    out = [c[kv] for c in cache["prefix"]]
+    out = [whole_leaf(c[kv]) for c in cache["prefix"]]
     stack = cache.get("stack", {})
+    stack = {name: {k: whole_leaf(t) for k, t in e.items()}
+             for name, e in stack.items()}
     n_rep = next(iter(stack.values()))[kv].shape[0] if stack else 0
     for r in range(n_rep):
         out.extend(stack[name][kv][r]
@@ -2747,7 +2775,7 @@ def decode_against_forward(cfg, device) -> float:
     return logits_spread(step[:, 0, :v], full[:, p, :v])[0]
 
 
-def phase_llm(device, card) -> None:
+def phase_llm(device, card) -> dict:
     """Phase 9: llama3-8b at full width from seeded weights: 4 requests
     of 512 prompt tokens prefilled into a 544-slot cache, 32 greedy
     decode steps; gates on finite logits, the first decode step against
@@ -2912,6 +2940,8 @@ def phase_llm(device, card) -> None:
         f"{peak_gb:.3f} GB; {card}")
     del model, params, p0, cache, out, logits, step_logits
     torch.cuda.empty_cache()
+    return {"prefill_ms": pre_ms, "decode_ms": float(np.mean(dec)),
+            "peak_gb": peak_gb}
 
 
 def moe_serve(arch, device, card) -> None:
@@ -3468,8 +3498,18 @@ DP_STEPS = 5
 # the 2-layer cut on a mesh against one device runs in float32: in bf16
 # EP rounds each expert output before its combine (the reference does),
 # which moves layer 1's input by a bf16 rounding and flips near-tie
-# routes; in float32 only a token whose k-th and (k+1)-th probabilities
-# lie within MESH_NEAR_TIE may take the other expert (counted, printed)
+# routes. Routes are compared as sets of experts: two experts trading
+# rank inside the top-k (counted, printed) choose the same experts. A
+# token whose set differs must lie at a near-tie, or sit downstream of a
+# change: a later layer of a sequence in which an earlier layer's set
+# changed at or before the token's position (the changed expert output
+# reaches it through attention). A near-tie is a top-k margin below
+# MESH_NEAR_TIE, or below twice the largest difference of a router
+# probability between the two runs among the layer's tokens whose set
+# is unchanged and not downstream: the dense layers on the mesh are
+# tensor-parallel (phase 13), so the router's input carries their sums'
+# float32 noise, and a set can change only where the margin is within
+# the probabilities' noise
 MESH_NEAR_TIE = 1e-5
 
 
@@ -3496,12 +3536,19 @@ def mesh_topology(cfg, shape, axes, device, **sharding):
 
 
 def on_topology(model, topo):
-    """The same module (its parameters shared) under another topology."""
-    import copy
+    """`model`'s parameters placed by their specs on `topo`: views of
+    its tensors on repeated entries of its card (no copy), copies on
+    other cards."""
+    from repro_torch.models.causal_lm import CausalLM
 
-    other = copy.copy(model)
-    other.topo = topo
-    return other
+    return CausalLM(model.cfg, topo, params=model.params())
+
+
+def whole_leaf(t):
+    """A cache or parameter leaf as one tensor (a placed one joined)."""
+    from repro_torch.sharding.collectives import Placed
+
+    return t.whole() if isinstance(t, Placed) else t
 
 
 def sub_phase(label, card):
@@ -3537,18 +3584,49 @@ def mesh_routes(probe, n_calls: int, pick) -> list:
     return out
 
 
-def route_flips(a, b, k) -> tuple[int, float]:
-    """(tokens whose expert ids differ, summed over layers; the largest
-    top-k margin among them, else -1) of two lists of (probs, ids) by
-    layer."""
-    n, largest = 0, -1.0
-    for (pa, ia), (_, ib) in zip(a, b):
-        bad = (ia.cpu() != ib.cpu()).any(dim=-1)
-        if bool(bad.any()):
-            n += int(bad.sum())
-            largest = max(largest,
-                          float(route_margin(pa.cpu(), k)[bad].max()))
-    return n, largest
+def route_changes(a, b, k, seq: int, earlier=None) -> dict:
+    """Two lists of (probs, ids) by layer, each layer's tokens in (batch,
+    position) order over sequences of `seq` tokens: per layer, the
+    tokens whose expert set differs, how many of them lie at a near-tie,
+    how many are downstream of an earlier layer's change in their
+    sequence, the largest margin among those neither, the rank swaps
+    inside an unchanged set, and the near-tie bound: MESH_NEAR_TIE, or
+    twice the largest difference of a router probability among the
+    layer's other tokens (the two runs' own noise) where that is larger.
+    `earlier` is the result for the tokens that precede these in their
+    sequences (prefill's, for a decode step)."""
+    import torch
+
+    rows, before, first = [], [], None
+    for layer, ((pa, ia), (pb, ib)) in enumerate(zip(a, b)):
+        pa, ia, pb, ib = pa.cpu(), ia.cpu(), pb.cpu(), ib.cpu()
+        changed = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        swapped = (~changed) & (ia != ib).any(-1)
+        margin = route_margin(pa, k)
+        which = torch.arange(ia.shape[0]) // seq
+        pos = torch.arange(ia.shape[0]) % seq
+        if first is None:  # per sequence, the first changed position
+            first = torch.full((ia.shape[0] // seq,), seq)
+        up = first[which] <= pos
+        if earlier is not None:
+            up |= (earlier["before"][layer] < earlier["seq"])[which]
+        before.append(first.clone())
+        rest = ~changed & ~up
+        noise = (float((pa - pb)[rest].abs().max()) if bool(rest.any())
+                 else 0.0)
+        near = max(MESH_NEAR_TIE, 2 * noise)
+        tie = changed & (margin < near)
+        bad = changed & ~tie & ~up
+        rows.append({"changed": int(changed.sum()), "tie": int(tie.sum()),
+                     "downstream": int((changed & ~tie & up).sum()),
+                     "unexplained": int(bad.sum()),
+                     "margin": float(margin[bad].max()) if bool(bad.any())
+                     else -1.0, "swaps": int(swapped.sum()), "near": near,
+                     "widest": float(margin[changed].max())
+                     if bool(changed.any()) else -1.0})
+        at = torch.where(changed, pos, seq).reshape(-1, seq).min(-1).values
+        first = torch.minimum(first, at)
+    return {"rows": rows, "before": before, "seq": seq}
 
 
 def mesh_moe_layer(tag, model, topo, prompts, card) -> None:
@@ -3572,18 +3650,23 @@ def mesh_moe_layer(tag, model, topo, prompts, card) -> None:
     params = model.params()
     groups = layer_groups(model.specs)
     j = next(i for i, sp in enumerate(groups.pattern) if sp.ffn == FFN_MOE)
-    layer = _stack_slice(params["blocks"]["stack"][f"l{j}"], 0)
+    # the layer's placed leaves (sliced part by part) for the mesh, and
+    # joined for the one-device call and the oracle
+    placed = {k: _placed_slice(v, 0)
+              for k, v in params["blocks"]["stack"][f"l{j}"].items()}
+    layer = _whole_tree(placed)
+    embed = params["embed"].whole()
     b, p = prompts.shape[0], LLM_PROMPT
     with torch.no_grad():
         for what, tokens in (("prefill", prompts[:, :p]),
                              ("decode", prompts[:, p:p + 1])):
-            h = apply_norm(layer["norm2"], params["embed"][tokens], cfg.norm)
+            h = apply_norm(layer["norm2"], embed[tokens], cfg.norm)
             with MoeProbe() as probe:
-                y, aux = apply_moe(layer["ffn"], h, nodrop, ntopo)
+                y, aux = apply_moe(placed["ffn"], h, nodrop, ntopo)
             y1, aux1 = apply_moe(layer["ffn"], h, nodrop)
             yo, _ = moe_dense_oracle(layer["ffn"], h, nodrop)
             kept = min([float(k) for k in probe.keep] or [1.0])
-            mesh_ms = cuda_ms(lambda: apply_moe(layer["ffn"], h, nodrop,
+            mesh_ms = cuda_ms(lambda: apply_moe(placed["ffn"], h, nodrop,
                                                 ntopo))
             one_ms = cuda_ms(lambda: apply_moe(layer["ffn"], h, nodrop))
             top = float(y1.float().abs().max())
@@ -3601,7 +3684,21 @@ def mesh_moe_layer(tag, model, topo, prompts, card) -> None:
                     and do <= MESH_LAYER_TOL * top):
                 raise AssertionError(f"{tag}: the mesh's MoE layer disagrees "
                                      f"on the {what} input")
-    del y, y1, yo, h, layer, params
+    del y, y1, yo, h, layer, placed, embed, params
+
+
+def _placed_slice(tree, i):
+    """Repeat i of a tree of stacked placed leaves (views, part by
+    part; the stacked axis is never split under dp_tp)."""
+    if isinstance(tree, dict):
+        return {k: _placed_slice(v, i) for k, v in tree.items()}
+    return tree.map(lambda t: t[i], tree.spec[1:])
+
+
+def _whole_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _whole_tree(v) for k, v in tree.items()}
+    return tree.whole()
 
 
 def mesh_serve(tag, model, card) -> dict:
@@ -3705,22 +3802,28 @@ def mesh_cut(tag, cfg, topo, device) -> None:
     first = [i for i in range(n) if i % tp == 0]
     pre_m = mesh_routes(res["mesh"][2], n, every if ep_path else first)
     dec_m = mesh_routes(res["mesh"][3], n, first)
-    flips_p, m_p = route_flips(pre_m, res["one"][2].routes,
-                               cut.n_experts_per_token)
-    flips_d, m_d = route_flips(dec_m, res["one"][3].routes,
-                               cut.n_experts_per_token)
-    margin = max(m_p, m_d)
+    k = cut.n_experts_per_token
+    pre = route_changes(pre_m, res["one"][2].routes, k, p)
+    dec = route_changes(dec_m, res["one"][3].routes, k, 1, pre)
+    rows = pre["rows"] + dec["rows"]
     d_pre = logits_spread(res["mesh"][0][..., :v], res["one"][0][..., :v])[0]
     d_dec = logits_spread(res["mesh"][1][..., :v], res["one"][1][..., :v])[0]
     log(f"[mesh] {tag} cut to {LLM_CHECK_LAYERS} layers, float32, capacity "
         f"factor {cut.capacity_factor:.4g}: on the mesh against one device, "
-        f"expert ids differing on {flips_p} prefill and {flips_d} decode "
-        f"token-layers (largest top-k margin among them {margin:.3g}, near-"
-        f"tie bound {MESH_NEAR_TIE}); max |diff| over max |logit| prefill "
+        f"by MoE layer (prefill's {len(pre['rows'])}, then the first decode "
+        f"step's) the tokens whose expert set differs / at a near-tie "
+        f"(margin below the bound) / downstream of an earlier layer's "
+        f"change in their sequence / neither (their largest margin) / rank "
+        f"swaps inside an unchanged set, the largest margin of a changed "
+        f"set, the near-tie bound: "
+        + "; ".join(f"{r['changed']} / {r['tie']} / {r['downstream']} / "
+                    f"{r['unexplained']} ({r['margin']:.3g}) / {r['swaps']}"
+                    f", {r['widest']:.3g}, {r['near']:.3g}" for r in rows)
+        + f" (bound: none neither); max |diff| over max |logit| prefill "
         f"{d_pre:.4g}, first decode step {d_dec:.4g} (bound "
         f"{LLM_DECODE_TOL})")
-    if margin >= MESH_NEAR_TIE or not (d_pre <= LLM_DECODE_TOL
-                                       and d_dec <= LLM_DECODE_TOL):
+    if any(r["unexplained"] for r in rows) or not (
+            d_pre <= LLM_DECODE_TOL and d_dec <= LLM_DECODE_TOL):
         raise AssertionError(f"{tag}: the cut model on the mesh disagrees "
                              "with one device")
     del one, mesh, res
@@ -3754,7 +3857,7 @@ def mesh_moe(tag, arch, shape, device, card, **sharding) -> dict:
     return nums
 
 
-def mesh_llm(device, card) -> None:
+def mesh_llm(device, card) -> dict:
     """12c: llama3-8b at full width, decoding with the cache split on its
     sequence axis over `model` on (1, 4) and over `data` on (4, 1), fed
     the one-device greedy run's tokens: layer 0's decoded K/V bitwise,
@@ -3795,13 +3898,13 @@ def mesh_llm(device, card) -> None:
         return cache, torch.cat(logits, 1), fed, float(np.mean(ms[1:]))
 
     cache1, logits1, fed, one_ms = run(one)
+    nums = {}
     for shape, axis in (((1, 4), "model"), ((4, 1), "data")):
         topo = mesh_topology(cfg, shape, ("data", "model"), device,
                              seq_sharded_kv=True, kv_seq_axis=axis)
         mesh = on_topology(one, topo)
         cache, logits, _, ms = run(mesh, fed)
-        k0 = [c for c in (cache["stack"]["l0"]["k"][0],
-                          cache["stack"]["l0"]["v"][0])]
+        k0 = [whole_leaf(cache["stack"]["l0"][kv])[0] for kv in ("k", "v")]
         r0 = [cache1["stack"]["l0"]["k"][0], cache1["stack"]["l0"]["v"][0]]
         same = all(torch.equal(a[:, p:p + LLM_DECODE], c[:, p:p + LLM_DECODE])
                    for a, c in zip(k0, r0))
@@ -3816,6 +3919,7 @@ def mesh_llm(device, card) -> None:
             f"argmax equal on {agree:.3f}")
         if not same:
             raise AssertionError("12c: layer 0's decoded K/V differ")
+        nums[axis] = ms
         del cache, logits, mesh
     del one, cache1, logits1
     torch.cuda.empty_cache()
@@ -3846,6 +3950,7 @@ def mesh_llm(device, card) -> None:
             raise AssertionError("12c: the cut model's decode disagrees")
     del one, logits1
     torch.cuda.empty_cache()
+    return nums
 
 
 def mesh_train(device, card, train_ms) -> None:
@@ -3911,8 +4016,8 @@ def mesh_train(device, card, train_ms) -> None:
         f"{[str(d) for d in mesh.device_list()]}, compress=True: loss by "
         f"step {[round(x, 4) for x in losses]}; first step {ms[0]:.1f} ms, "
         f"then mean {step_ms:.1f} ms, {tokens / (step_ms / 1e3):.5g} "
-        f"tokens/s (phase 11's one-device step on 4 layers at grad_accum "
-        f"2: {train_ms:.1f} ms)")
+        f"tokens/s (phase 11's one-device step on {TRAIN_LAYERS} layers at "
+        f"grad_accum 2: {train_ms:.1f} ms)")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError("12d: the loss does not fall")
     final = [t.clone() for t in tree_leaves(state["params"])]
@@ -4029,7 +4134,7 @@ def mesh_merge(device, obs_x, card) -> None:
                              "merge_blocks")
 
 
-def phase_mesh(device, card, obs_x, train_ms) -> None:
+def phase_mesh(device, card, obs_x, train_ms) -> dict:
     """Phase 12: the multi-device pieces on a mesh of the visible cards,
     or of repeated entries of the one card."""
     import torch
@@ -4049,12 +4154,554 @@ def phase_mesh(device, card, obs_x, train_ms) -> None:
         mesh_moe("12b", "deepseek-moe-16b", (2, 2), device, card,
                  expert_parallel=False)
     with sub_phase("12c llama3-8b sequence-sharded decode", card):
-        mesh_llm(device, card)
+        nums = mesh_llm(device, card)
     with sub_phase("12d the data-parallel step", card):
         mesh_train(device, card, train_ms)
     with sub_phase("12e merge_over_axis", card):
         mesh_merge(device, obs_x, card)
     log(f"[mesh] phase 12 took {time.perf_counter() - t0:.1f} s; {card}")
+    return nums
+
+
+# phase 13: the dense layers placed by their specs, over four entries of
+# cuda:0 (cuda:0..3 where four cards are visible)
+DENSE_MESHES = (((1, 4), "dp_tp"), ((2, 2), "fsdp_tp"))
+# the 2-layer float32 cut on a mesh against one device: prefill's last
+# logits and the first decode step, and each parameter's gradient on one
+# microbatch. Only the order of the sums differs (four partial products
+# and a psum where one device adds one product), and float32 carries
+# these random full-width layers only so far, so the bound comes from a
+# control in the same run: the one-device float32 model against the
+# same weights evaluated in float64 throughout by `f64_llama` (only its
+# RoPE table is the model's float32 one, which defines the function).
+# Two float32 evaluations each that far from float64 differ by up to
+# twice it, so the mesh is held within DENSE_NOISE_FACTOR times the
+# control (per leaf for gradients), and the control itself within
+# DENSE_F64_TOL of max |logit| or of each leaf's largest gradient (the
+# float64 forward against the model's). A bf16 one-device model against
+# float64 is printed beside them: the size of a one-rounding fault. On
+# the H100 the float32 control read 3.9e-4 on the logits and 1.1e-4 to
+# 1.07e-2 on the gradients, the meshes 0.65-1.24 times it, the bf16
+# control 0.41 and 0.13-1.9: a wrong sum or a missing psum moves a leaf
+# by a share of its size, far above these bounds
+DENSE_NOISE_FACTOR = 4
+DENSE_F64_TOL = 5e-2
+# ... and the float32 train steps, from the default optimizer: each
+# step's loss within DENSE_LOSS_RTOL of one device's (a mean over 8,192
+# tokens). The parameters after them are printed, not gated: Adam
+# divides each entry by its own size, so an entry whose gradient lies
+# within float32's noise of zero may step either way
+DENSE_LOSS_RTOL = 1e-4
+# the fsdp_tp step: llama3-8b cut to 4 of 32 layers (its state, about
+# 27 GB, fits one card; the full model's about 128 GB does not), on
+# (2, 2), at the registry's grad_accum; the float32 2-layer cut over
+# DENSE_CHECK_STEPS steps, whose placed state (about 18 GB) goes through
+# the store
+DENSE_TRAIN_LAYERS = 4
+DENSE_CHECK_STEPS = 3
+
+
+def dense_topology(cfg, shape, strategy, device, **kw):
+    from repro_torch.configs.base import MeshSpec, ShardingConfig
+    from repro_torch.sharding.rules import Topology, make_mesh_from_spec
+
+    mesh = make_mesh_from_spec(MeshSpec(shape, ("data", "model")),
+                               mesh_devices(shape[0] * shape[1], device))
+    return Topology(mesh, cfg, ShardingConfig(strategy=strategy, **kw))
+
+
+def placed_layout(model) -> str:
+    """A few leaves' specs and part shapes, as placed."""
+    params = model.params()
+    leaves = {"embed": params["embed"],
+              "wq": params["blocks"]["stack"]["l0"]["mixer"]["wq"],
+              "wk": params["blocks"]["stack"]["l0"]["mixer"]["wk"],
+              "w_down": params["blocks"]["stack"]["l0"]["ffn"]["w_down"]}
+    return "; ".join(f"{k} {tuple(v.shape)} by {v.spec} as "
+                     f"{tuple(v.parts[0].shape)}" for k, v in leaves.items())
+
+
+def bf16_ulps(a, b) -> int:
+    """The largest distance in bf16 steps between a and b (same-sign
+    values; a sign change counts as large)."""
+    import torch
+
+    ia = a.contiguous().view(torch.int16).to(torch.int32)
+    ib = b.contiguous().view(torch.int16).to(torch.int32)
+    return int((ia - ib).abs().max())
+
+
+def f64_llama(cfg, params, tokens):
+    """A plain forward of a llama-style config (RMSNorm, half-split RoPE,
+    GQA, SwiGLU, an untied head, no biases) in float64 throughout, from
+    `params` (the model's tree of whole leaves, already float64): the
+    logits over the unpadded vocabulary, (B, S, vocab_size). The RoPE
+    table is the model's own, computed in float32 as it defines it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.rope import rope_freqs
+
+    if not (cfg.norm == "rmsnorm" and cfg.mlp_variant == "swiglu"
+            and cfg.use_rope and not cfg.tie_embeddings and not cfg.mlp_bias
+            and not cfg.parallel_block and cfg.family == "dense"):
+        raise ValueError(f"f64_llama does not cover {cfg.name}")
+    dev, s = tokens.device, tokens.shape[1]
+    hd = cfg.resolved_head_dim
+    angles = (torch.arange(s, dtype=torch.float32, device=dev)[:, None]
+              * rope_freqs(hd, cfg.rope_theta, dev))
+    cos, sin = (f(angles).double()[:, None, :] for f in (torch.cos,
+                                                         torch.sin))
+
+    def rope(t):
+        t1, t2 = t.chunk(2, dim=-1)
+        return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos], -1)
+
+    def norm(x, scale):
+        return x * (x.pow(2).mean(-1, keepdim=True) + 1e-6).rsqrt() * scale
+
+    group = cfg.n_heads // cfg.n_kv_heads
+    causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    st = params["blocks"]["stack"]["l0"]
+    x = params["embed"][tokens]
+    for i in range(cfg.n_layers):
+        at, ff = st["mixer"], st["ffn"]
+        h = norm(x, st["norm1"]["scale"][i])
+        q = rope(torch.einsum("bsd,dhk->bshk", h, at["wq"][i]))
+        k = rope(torch.einsum("bsd,dhk->bshk", h, at["wk"][i]))
+        v = torch.einsum("bsd,dhk->bshk", h, at["wv"][i])
+        k, v = (t.repeat_interleave(group, dim=2) for t in (k, v))
+        w = torch.einsum("bqhk,bshk->bhqs", q, k) * hd ** -0.5
+        w = w.masked_fill(~causal, float("-inf")).softmax(-1)
+        o = torch.einsum("bhqs,bshk->bqhk", w, v)
+        x = x + torch.einsum("bshk,hkd->bsd", o, at["wo"][i])
+        h = norm(x, st["norm2"]["scale"][i])
+        x = x + (F.silu(h @ ff["w_gate"][i]) * (h @ ff["w_up"][i])) \
+            @ ff["w_down"][i]
+    x = norm(x, params["final_norm"]["scale"])
+    return x @ params["head"][:, :cfg.vocab_size]
+
+
+def f64_tree(params, grad: bool = False):
+    """A float64 copy of a tree of whole leaves (requiring grad where
+    asked)."""
+    if isinstance(params, dict):
+        return {k: f64_tree(v, grad) for k, v in params.items()}
+    if isinstance(params, list):
+        return [f64_tree(v, grad) for v in params]
+    return whole_leaf(params).detach().double().requires_grad_(grad)
+
+
+def spread(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    return float((got.double() - ref.double()).abs().max()) / float(
+        ref.double().abs().max())
+
+
+def dense_serve_run(model, prompts, fed=None):
+    """Phase 9's requests on `model`: prefill (a warm-up, then timed),
+    LLM_DECODE decode steps, greedy or `fed` tokens. Returns (cache,
+    last, logits (B, LLM_DECODE, V), the fed tokens, prefill ms, decode
+    ms of each step)."""
+    import torch
+
+    b, p = LLM_BATCH, LLM_PROMPT
+    v = model.cfg.vocab_size
+    device = model.device
+    batch = {"tokens": prompts[:, :p]}
+    model.prefill(batch, cache_len=LLM_CACHE)
+    out = [None]
+
+    def prefill():
+        out[0] = model.prefill(batch, cache_len=LLM_CACHE)
+
+    pre_ms = cuda_ms(prefill)
+    cache, last = out[0]
+    token = prompts[:, p:p + 1] if fed is None else fed[0]
+    tokens, logits, ms = [], [], []
+    for i in range(LLM_DECODE):
+        tokens.append(token)
+        pos = torch.full((b,), p + i, dtype=torch.long, device=device)
+
+        def step():
+            out[0] = model.decode_step(cache, token, pos)
+
+        ms.append(cuda_ms(step))
+        lg, cache = out[0]
+        logits.append(lg)
+        token = (lg[:, :, :v].argmax(-1) if fed is None
+                 else fed[min(i + 1, LLM_DECODE - 1)])
+    return cache, last, torch.cat(logits, 1), tokens, pre_ms, ms
+
+
+def dense_serve(device, card, llm, seq_decode) -> None:
+    """13a: llama3-8b at full width served on (1, 4) under dp_tp and on
+    (2, 2) under fsdp_tp, its parameters placed by param_shardings
+    (views of the one-device model's weights), against the one-device
+    run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(LLM_ARCH)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LLM_SEED)
+    one = build_model(cfg, device=device).init(gen)
+    b, p, v = LLM_BATCH, LLM_PROMPT, cfg.vocab_size
+    prompts = torch.randint(0, v, (b, p + 1), generator=gen, device=device)
+    cache1, _, logits1, fed, one_pre, one_ms = dense_serve_run(one, prompts)
+    n = p + LLM_DECODE
+    ref0 = [cache1["stack"]["l0"][kv][0, :, :n] for kv in ("k", "v")]
+    for shape, strategy in DENSE_MESHES:
+        topo = dense_topology(cfg, shape, strategy, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = on_topology(one, topo)
+        log(f"[dense] 13a {LLM_ARCH} at full width on {shape} (data, model) "
+            f"under {strategy} over {[str(d) for d in topo.mesh.device_list()]}:"
+            f" {placed_layout(mesh)}")
+        runs = [dense_serve_run(mesh, prompts, fed) for _ in range(2)]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cache, last, logits, _, pre_ms, ms = runs[0]
+        got0 = [whole_leaf(cache["stack"]["l0"][kv])[0, :, :n]
+                for kv in ("k", "v")]
+        ulps = max(bf16_ulps(a, r) for a, r in zip(got0, ref0))
+        c2, last2, logits2 = runs[1][:3]
+        rerun = (torch.equal(last, last2) and torch.equal(logits, logits2)
+                 and all(torch.equal(whole_leaf(a), whole_leaf(c))
+                         for a, c in zip(tree_walk(cache), tree_walk(c2))))
+        spread, agree = logits_spread(logits[..., :v], logits1[..., :v])
+        dec = float(np.mean(ms[1:]))
+        log(f"[dense] 13a on {shape}: layer 0's K/V over the {n} positions "
+            f"against the one-device run: "
+            + ("bitwise" if ulps == 0 else
+               f"within {ulps} bf16 step(s), not bitwise")
+            + f" (bound one step); a rerun bitwise {rerun}; full-depth "
+            f"logits max |diff| over max |logit| {spread:.4g}, argmax equal "
+            f"on {agree:.3f} (chaotic depth: printed, not gated); prefill "
+            f"{b} x {p} {pre_ms:.3f} ms (one device here {one_pre:.3f}, "
+            f"phase 9 {llm['prefill_ms']:.3f}); decode mean {dec:.3f} ms a "
+            f"step (one device here {float(np.mean(one_ms[1:])):.3f}, phase "
+            f"9 {llm['decode_ms']:.3f}, phase 12c's sequence-sharded "
+            f"{seq_decode['model']:.3f} / {seq_decode['data']:.3f}); peak "
+            f"memory {peak_gb:.3f} GB (phase 9 {llm['peak_gb']:.3f}); "
+            f"{card}")
+        if not (ulps <= 1 and rerun and bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"13a: the placed model on {shape} "
+                                 "disagrees")
+        del runs, cache, c2, mesh, logits, logits2, got0
+    del one, cache1, logits1, ref0
+    torch.cuda.empty_cache()
+
+
+
+def dense_cut(device, card) -> None:
+    """13a's float32 check: llama3-8b cut to LLM_CHECK_LAYERS layers on
+    each mesh against one device, within DENSE_NOISE_FACTOR times the
+    one-device model's own distance from float64."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(LLM_ARCH)
+    b, p, v = LLM_BATCH, LLM_PROMPT, cfg.vocab_size
+    gen = torch.Generator(device=device)
+    cut = dataclasses.replace(cfg, n_layers=LLM_CHECK_LAYERS,
+                              dtype="float32")
+    gen.manual_seed(LLM_SEED)
+    one = build_model(cut, device=device).init(gen)
+    prompts = torch.randint(0, v, (b, p + 1), generator=gen, device=device)
+    _, last1, logits1, fed, _, _ = dense_serve_run(one, prompts)
+    # the controls: the float32 and the bf16 one-device model against
+    # float64, at prefill's last position and the first decode step's
+    exact = f64_llama(cut, f64_tree(one.params()), prompts)[:, p - 1:]
+    f32 = max(spread(last1.reshape(b, -1)[:, :v], exact[:, 0]),
+              spread(logits1[:, 0, :v], exact[:, 1]))
+    half = build_model(dataclasses.replace(cut, dtype="bfloat16"),
+                       device=device)
+    half.load_state_dict(one.state_dict())  # each weight rounded once
+    _, last_h, logits_h, _, _, _ = dense_serve_run(half, prompts, fed)
+    bf16 = max(spread(last_h.reshape(b, -1)[:, :v], exact[:, 0]),
+               spread(logits_h[:, 0, :v], exact[:, 1]))
+    del half, exact, last_h, logits_h
+    limit = DENSE_NOISE_FACTOR * f32
+    log(f"[dense] 13a {LLM_ARCH} cut to {LLM_CHECK_LAYERS} layers: one "
+        f"device against float64 (f64_llama), max |diff| over max |logit| "
+        f"of prefill's last logits and the first decode step: float32 "
+        f"{f32:.4g} (bound {DENSE_F64_TOL}), bf16 {bf16:.4g} (printed); "
+        f"the meshes held within {DENSE_NOISE_FACTOR} x the float32 "
+        f"figure, {limit:.4g}")
+    if not f32 <= DENSE_F64_TOL:
+        raise AssertionError("13a: the float32 model disagrees with its "
+                             "float64 evaluation")
+    for shape, strategy in DENSE_MESHES:
+        mesh = on_topology(one, dense_topology(cut, shape, strategy, device))
+        _, last, logits, _, _, _ = dense_serve_run(mesh, prompts, fed)
+        d_pre = spread(last[..., :v], last1[..., :v])
+        d = spread(logits[:, 0, :v], logits1[:, 0, :v])
+        worst = max(spread(logits[:, i, :v], logits1[:, i, :v])
+                    for i in range(LLM_DECODE))
+        log(f"[dense] 13a {LLM_ARCH} cut to {LLM_CHECK_LAYERS} layers, "
+            f"float32, on {shape} under {strategy} against one device: max "
+            f"|diff| over max |logit| prefill {d_pre:.4g}, first decode "
+            f"step {d:.4g} (bound {limit:.4g}); over the {LLM_DECODE} "
+            f"steps at most {worst:.4g}")
+        if not (d_pre <= limit and d <= limit):
+            raise AssertionError(f"13a: the float32 cut on {shape} "
+                                 "disagrees with one device")
+        del mesh, logits
+    del one, logits1
+    torch.cuda.empty_cache()
+
+
+def tree_walk(tree) -> list:
+    """The leaves of a nested dict / list, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_walk(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in tree_walk(t)]
+    return [tree]
+
+
+def dense_steps(model_cfg, topology, steps, opt, device):
+    """`steps` train steps of `model_cfg` on `topology` (one device where
+    None) from LLM_SEED's init, at llama3-8b's registry sharding, over
+    TRAIN_DATA synth_batch batches of TRAIN_BATCH x TRAIN_SEQ: (model,
+    state, losses, each step's ms)."""
+    import torch
+
+    from repro_torch.configs.registry import default_sharding
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    scfg = default_sharding(LLM_ARCH)
+    batches = [synth_batch(model_cfg, TRAIN_BATCH, TRAIN_SEQ, i)
+               for i in range(TRAIN_DATA)]
+    model = build_model(model_cfg, topology, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LLM_SEED)
+    state = init_train_state(model, gen, opt)
+    step = make_train_step(model, opt, scfg)
+    losses, ms, out = [], [], [None]
+    for i in range(steps):
+        def run():
+            out[0] = step(state, batches[i % TRAIN_DATA])
+
+        ms.append(cuda_ms(run))
+        state, m = out[0]
+        losses.append(float(m["loss"]))
+    return model, state, losses, ms
+
+
+def dense_train(device, card) -> None:
+    """13b: the fsdp_tp train step of llama3-8b at full width cut to
+    DENSE_TRAIN_LAYERS layers on (2, 2)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.configs.registry import default_sharding, get_config
+    from repro_torch.sharding.collectives import flat_parts
+
+    full = get_config(LLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DENSE_TRAIN_LAYERS)
+    scfg = default_sharding(LLM_ARCH)
+    ocfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    shape = (2, 2)
+    topo = dense_topology(cfg, shape, scfg.strategy, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, state, losses, ms = dense_steps(cfg, topo, TRAIN_STEPS, ocfg,
+                                           device)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in flat_parts(state)) / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = float(np.mean(ms[1:]))
+    bound = 6 * cfg.active_param_count() * tokens / PEAK_BF16_OPS * 1e3
+    log(f"[dense] 13b {LLM_ARCH} at full width cut to {cfg.n_layers} of "
+        f"{full.n_layers} layers, {scfg.strategy} on {shape} over "
+        f"{[str(d) for d in topo.mesh.device_list()]}: state {state_gb:.3f} "
+        f"GB as parts ({placed_layout(model)}); {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} at grad_accum {scfg.grad_accum}: loss "
+        f"by step {[round(x, 4) for x in losses]}; first step {ms[0]:.1f} "
+        f"ms, then mean {step_ms:.1f} ms, {tokens / (step_ms / 1e3):.5g} "
+        f"tokens/s; bound {bound:.3f} ms (6 x {cfg.active_param_count():,} "
+        f"parameters x {tokens} tokens at {PEAK_BF16_OPS / 1e12:g} TFLOP/s "
+        f"bf16), {bound / step_ms:.3f} of it; peak memory {peak_gb:.3f} GB")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and np.mean(losses[-TRAIN_DATA:]) < np.mean(
+                losses[:TRAIN_DATA])):
+        raise AssertionError("13b: the loss does not fall")
+    final = [t.clone() for t in flat_parts(state["params"])]
+    del model, state
+    torch.cuda.empty_cache()
+    _, state, losses2, _ = dense_steps(cfg, topo, TRAIN_STEPS, ocfg,
+                                       device)
+    rerun = losses2 == losses and all(
+        torch.equal(a, c) for a, c in zip(final, flat_parts(state["params"])))
+    log(f"[dense] 13b a rerun from the same seed: losses and every "
+        f"parameter part bitwise {rerun}")
+    if not rerun:
+        raise AssertionError("13b: a rerun of the fsdp_tp step differs")
+    del state, final
+    torch.cuda.empty_cache()
+    # the phase-11-style step of the same cut on one device
+    _, state, _, one_ms = dense_steps(cfg, None, DENSE_CHECK_STEPS, ocfg,
+                                      device)
+    one_step = float(np.mean(one_ms[1:]))
+    log(f"[dense] 13b the same cut on one device (make_train_step, grad_"
+        f"accum {scfg.grad_accum}): mean {one_step:.1f} ms a step; the "
+        f"fsdp_tp step on {shape} takes {step_ms / one_step:.2f} x it")
+    del state
+    torch.cuda.empty_cache()
+
+
+def dense_check(device, card) -> None:
+    """13b's float32 check: llama3-8b cut to LLM_CHECK_LAYERS layers on
+    (2, 2) under fsdp_tp against one device, each parameter's gradient
+    beside the float64 and bf16 controls, then DENSE_CHECK_STEPS steps;
+    the placed state through the store."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import store
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.configs.registry import default_sharding, get_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import build_model
+    from repro_torch.sharding.collectives import flat_parts
+    from repro_torch.train.step import _grad_fn
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+    full = get_config(LLM_ARCH)
+    scfg = default_sharding(LLM_ARCH)
+    shape = (2, 2)
+    # the float32 2-layer cut on the mesh against one device: each
+    # parameter's gradient on one microbatch, beside the float64 and bf16
+    # controls; then DENSE_CHECK_STEPS steps with the default optimizer
+    check = dataclasses.replace(full, n_layers=LLM_CHECK_LAYERS,
+                                dtype="float32")
+    ctopo = dense_topology(check, shape, scfg.strategy, device)
+    mb = {k: v[:TRAIN_BATCH // scfg.grad_accum] for k, v in synth_batch(
+        check, TRAIN_BATCH, TRAIN_SEQ, 0).items()}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LLM_SEED)
+    one = build_model(check, device=device).init(gen)
+    names = [path for path, _ in tree_flatten_with_path(one.params())]
+    g_one = tree_leaves(_grad_fn(one, one.params(), mb)[2])
+    mesh = on_topology(one, ctopo)
+    r_mesh = [spread(whole_leaf(g), w) for g, w in zip(
+        tree_leaves(_grad_fn(mesh, mesh.params(), mb)[2]), g_one)]
+    del mesh
+    wide = f64_tree(one.params(), grad=True)
+    tokens = torch.as_tensor(mb["tokens"], dtype=torch.long, device=device)
+    targets = torch.as_tensor(mb["targets"], dtype=torch.long, device=device)
+    logp = torch.log_softmax(f64_llama(check, wide, tokens), -1)
+    ce = -torch.take_along_dim(logp, targets[..., None], -1).mean()
+    g64 = torch.autograd.grad(ce, tree_leaves(wide))
+    del logp, ce, wide
+    r_f32 = [spread(g, w) for g, w in zip(g_one, g64)]
+    del g_one
+    half = build_model(dataclasses.replace(check, dtype="bfloat16"),
+                       device=device)
+    half.load_state_dict(one.state_dict())
+    r_bf16 = [spread(g, w) for g, w in zip(
+        tree_leaves(_grad_fn(half, half.params(), mb)[2]), g64)]
+    del half, g64, one
+    torch.cuda.empty_cache()
+    limits = [DENSE_NOISE_FACTOR * r for r in r_f32]
+    log(f"[dense] 13b {LLM_ARCH} cut to {LLM_CHECK_LAYERS} layers, float32: "
+        f"each parameter's gradient on one {tuple(tokens.shape)} microbatch "
+        f"as max |diff| over the leaf's max |gradient|, the mesh {shape} "
+        f"({scfg.strategy}) against one device (bound {DENSE_NOISE_FACTOR} "
+        f"x the float32 control), the float32 control (one device against "
+        f"float64, bound {DENSE_F64_TOL}) and the bf16 control (printed): "
+        + "; ".join(f"{n} {a:.3g} / {c:.3g} / {h:.3g}" for n, a, c, h in zip(
+            names, r_mesh, r_f32, r_bf16)) + f"; {card}")
+    if not (all(a <= lim for a, lim in zip(r_mesh, limits))
+            and all(c <= DENSE_F64_TOL for c in r_f32)):
+        raise AssertionError("13b: the float32 gradients on the mesh "
+                             "disagree with one device")
+    del tokens, targets
+    torch.cuda.empty_cache()
+
+    _, state, l_one, _ = dense_steps(check, None, DENSE_CHECK_STEPS,
+                                     OptimizerConfig(), device)
+    want = [t.clone() for t in tree_walk(state["params"])]
+    del state
+    torch.cuda.empty_cache()
+    _, state, l_mesh, _ = dense_steps(check, ctopo, DENSE_CHECK_STEPS,
+                                      OptimizerConfig(), device)
+    diffs = [(whole_leaf(a) - c).abs() for a, c in zip(
+        tree_walk(state["params"]), want)]
+    worst = max(float(d.max()) for d in diffs)
+    off = sum(int((d > 1e-6).sum()) for d in diffs) / sum(
+        d.numel() for d in diffs)
+    del diffs, want
+    d_loss = max(abs(a - c) / abs(c) for a, c in zip(l_mesh, l_one))
+    log(f"[dense] 13b the same cut: {DENSE_CHECK_STEPS} fsdp_tp steps on "
+        f"{shape} against make_train_step on one device: losses {l_mesh} "
+        f"and {l_one} (largest relative difference {d_loss:.3g}, bound "
+        f"{DENSE_LOSS_RTOL}); parameters max |diff| {worst:.3g}, {off:.3g} "
+        f"of the entries beyond 1e-6 (printed); {card}")
+    if not d_loss <= DENSE_LOSS_RTOL:
+        raise AssertionError("13b: the float32 fsdp_tp steps disagree with "
+                             "one device")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dense_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = store.save(state, tmp, DENSE_CHECK_STEPS)
+        save_s = time.perf_counter() - t0
+        size_gb = os.path.getsize(os.path.join(path, "arrays.npz")) / 1e9
+        t0 = time.perf_counter()
+        back = store.restore(state, tmp)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a, c) for a, c in zip(flat_parts(back),
+                                                     flat_parts(state)))
+        del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[dense] 13b the cut's placed state through the pytree store "
+        f"(whole leaves in the file, parts on restore): save {save_s:.2f} "
+        f"s, {size_gb:.3f} GB, restore {restore_s:.2f} s, every part "
+        f"bitwise {same}; {card}")
+    if not same:
+        raise AssertionError("13b: the restored placed state differs")
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_dense_mesh(device, card, llm, seq_decode) -> None:
+    """Phase 13: the dense layers placed by their specs on a mesh of the
+    visible cards, or of repeated entries of the one card."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    t0 = time.perf_counter()
+    with sub_phase("13a llama3-8b served tensor-parallel", card):
+        dense_serve(device, card, llm, seq_decode)
+        dense_cut(device, card)
+    with sub_phase("13b the fsdp_tp train step", card):
+        dense_train(device, card)
+        dense_check(device, card)
+    log(f"[dense] phase 13 took {time.perf_counter() - t0:.1f} s; {card}")
 
 
 def main() -> int:
@@ -4092,14 +4739,15 @@ def main() -> int:
     shard_launches, shard_ref = phase_sharded(device, dense["records"], card)
     shard_launches["ssa_window"] += phase_farm(device, shard_ref, tol, card)
     shard_launches["ssa_window"] += phase_examples(device, card)
-    phase_llm(device, card)
+    llm = phase_llm(device, card)
     phase_llm_parity(device)
     t_lm = time.perf_counter()
     phase_moe(device, card)
     train_ms = phase_train(device, card)
     log(f"[moe+train] phases 10 and 11 took "
         f"{time.perf_counter() - t_lm:.1f} s")
-    phase_mesh(device, card, dense.pop("final_x"), train_ms)
+    seq_decode = phase_mesh(device, card, dense.pop("final_x"), train_ms)
+    phase_dense_mesh(device, card, llm, seq_decode)
     entries = [
         ("ssa_window", "ssa_window.cu", "src/repro/kernels/ssa_step.py:64",
          dense),

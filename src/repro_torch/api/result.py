@@ -53,6 +53,8 @@ class Telemetry:
     snapshot / that had to flush the pipeline.
     straggler_windows: (window, wall_s, rolling median) rows the
     straggler watchdog flagged (one sample per block under supersteps);
+    a farm's also holds ("frontier", worker, window, median window)
+    rows of workers whose checkpoint frontier lagged;
     straggler_rate: flagged over observed windows.
     restarts: engine teardowns and restores of a supervised run
     (Experiment.recovery); stall_redispatches: straggler re-dispatches,

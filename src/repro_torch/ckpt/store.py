@@ -26,6 +26,11 @@ packages both ways. `restore(..., shardings=)` places each leaf by its
 spec on a mesh (`sharding.collectives.shard`: one part a mesh position,
 views on repeated devices), so a file saved from one mesh restores onto
 another, as the reference's "elastic across mesh changes" restore.
+A placed state (`collectives.Placed` leaves: a model's parameters and
+its optimizer state on a mesh) is saved as whole leaves, joined on the
+host, as the reference's save of a sharded state writes them, and a
+`Placed` template leaf restores onto parts: its own layout, or the
+`shardings` leaf's where one is given.
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.sharding.collectives import shard
+from repro_torch.sharding.collectives import Placed, shard
 from repro_torch.tree import (
     tree_flatten_with_path,
     tree_map,
@@ -237,7 +242,10 @@ _HASH_CHUNK = 1 << 26
 
 def _host(leaf) -> tuple[np.ndarray, Optional[str]]:
     """(a leaf as a numpy array, its exotic dtype's name or None); a bf16
-    tensor as its bits, viewed as int16 (numpy has no bfloat16)."""
+    tensor as its bits, viewed as int16 (numpy has no bfloat16); a
+    `Placed` leaf joined on the host."""
+    if isinstance(leaf, Placed):  # joined on its first device, then one copy
+        leaf = leaf.whole()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -306,8 +314,16 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _leaf_like(arr: np.ndarray, exotic: Optional[str], leaf):
-    """The stored array as the template leaf's type, dtype and device."""
+def _leaf_like(arr: np.ndarray, exotic: Optional[str], leaf, sh=None):
+    """The stored array as the template leaf's type, dtype and device; a
+    `Placed` template leaf lands on the parts of its layout, or of `sh`'s
+    (each part copied from the host array)."""
+    if isinstance(leaf, Placed):  # one copy to the first device, then split
+        spec, mesh = (leaf.spec, leaf.mesh) if sh is None else (sh.spec,
+                                                                sh.mesh)
+        t = _leaf_like(arr, exotic, torch.empty(
+            (), dtype=leaf.dtype, device=mesh.device_list()[0]))
+        return Placed.empty(t.shape, t.dtype, spec, mesh).copy_(t)
     if isinstance(leaf, torch.Tensor):
         if exotic not in (None, "bfloat16"):
             raise TypeError(f"a {exotic} leaf has no torch counterpart here")
@@ -328,7 +344,9 @@ def restore(template: Any, directory: str, step: Optional[int] = None,
     template leaf's dtype and device. With `shardings` (a tree of
     `NamedSharding`s on the CURRENT mesh, shaped as `template`) each
     leaf comes back as its parts, one a mesh position in row-major
-    order, split by its spec (`collectives.unshard` joins them). Raises
+    order, split by its spec (`collectives.unshard` joins them); a
+    `Placed` template leaf comes back as a `Placed`, in its own layout
+    without `shardings`. Raises
     `CheckpointCorrupt` when arrays.npz does not match the manifest's
     sha256."""
     if step is None:
@@ -352,6 +370,9 @@ def restore(template: Any, directory: str, step: Optional[int] = None,
     out = []
     with np.load(npz_path) as data:
         for (key, leaf), sh in zip(flat, sh_leaves):
+            if isinstance(leaf, Placed):
+                out.append(_leaf_like(data[key], exotic.get(key), leaf, sh))
+                continue
             arr = _leaf_like(data[key], exotic.get(key), leaf)
             if sh is not None:
                 arr = shard(torch.as_tensor(arr).to(
@@ -371,7 +392,8 @@ class AsyncWriter:
         self.wait()
         # snapshot off the device (a copy: the trainer updates in place)
         host_tree = tree_map(
-            lambda x: (x.detach().to("cpu", copy=True)
+            lambda x: (x.whole("cpu") if isinstance(x, Placed) else
+                       x.detach().to("cpu", copy=True)
                        if isinstance(x, torch.Tensor) else np.array(x)),
             tree)
 

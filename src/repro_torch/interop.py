@@ -23,6 +23,11 @@ index per mesh axis): `parts_from_reference` / `parts_to_reference` map
 them to the port's parts (one a position, row-major) and back; the
 data-parallel step's error buffers (one tree a shard) and a
 sequence-sharded cache leaf (joined by its spec) have their own pair.
+A placed tree (a mesh model's parameters, or its train state with
+`Placed` parameters, `mu`, `nu` and `master`) crosses as {leaf path:
+{mesh position: buffer}}, the reference's `addressable_shards` of each
+leaf: `placed_tree_from_reference` / `placed_tree_to_reference`, bit
+for bit.
 """
 from __future__ import annotations
 
@@ -32,7 +37,13 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.gillespie import LaneState
 from repro_torch.core.reactions import ReactionSystem
-from repro_torch.sharding.collectives import positions, shard, unshard
+from repro_torch.sharding.collectives import (
+    Placed,
+    positions,
+    shard,
+    slice_key,
+    unshard,
+)
 from repro_torch.tree import (
     tree_flatten_with_path,
     tree_map,
@@ -233,3 +244,50 @@ def sharded_to_reference(t: torch.Tensor, spec: tuple, mesh) -> dict:
     """A tensor's split by `spec` on `mesh` as {mesh position: numpy
     buffer}, the reference's per-device buffers of that layout."""
     return parts_to_reference(shard(t, spec, mesh), mesh)
+
+
+def placed_from_reference(buffers: dict, sharding) -> Placed:
+    """A leaf the reference holds sharded by `sharding` (a
+    `NamedSharding` of the port's), given as {mesh position: numpy
+    buffer}, as a `Placed` on the port's mesh: positions holding the
+    same slice on one device share one part."""
+    mesh, spec = sharding.mesh, sharding.spec
+    devs = mesh.device_list()
+    seen, parts = {}, []
+    for i, pos in enumerate(positions(mesh)):
+        key = (slice_key(spec, mesh, pos), devs[i])
+        if key not in seen:
+            seen[key] = _to_tensor(buffers[pos], devs[i])
+        parts.append(seen[key])
+    return Placed(parts, spec, mesh)
+
+
+def placed_tree_from_reference(buffers: dict, template):
+    """`template`'s structure (a placed parameter tree or train state)
+    from {leaf path: {mesh position: numpy buffer}}: each `Placed` leaf
+    in its layout, any other leaf (the step) from its first position's
+    buffer, on the template leaf's device."""
+    out = []
+    for path, leaf in tree_flatten_with_path(template):
+        if isinstance(leaf, Placed):
+            out.append(placed_from_reference(buffers[path], leaf.sharding))
+        else:
+            first = buffers[path][min(buffers[path])]
+            out.append(_to_tensor(first, leaf.device))
+    return tree_unflatten_like(template, out)
+
+
+def placed_tree_to_reference(tree) -> dict:
+    """A placed tree as {leaf path: {mesh position: numpy buffer}}: a
+    `Placed` leaf's parts, and any other leaf at every position of the
+    first `Placed` leaf's mesh (a replicated array's buffers)."""
+    flat = tree_flatten_with_path(tree)
+    mesh = next(leaf.mesh for _, leaf in flat if isinstance(leaf, Placed))
+    out = {}
+    for path, leaf in flat:
+        if isinstance(leaf, Placed):
+            out[path] = parts_to_reference(leaf.parts, leaf.mesh)
+        else:
+            a = _to_array(leaf)
+            out[path] = {pos: a for pos in positions(mesh)}
+    return out

@@ -61,6 +61,22 @@ def _parse_depth(s: str):
         ) from None
 
 
+def straggler_line(rows, rate: float) -> str:
+    """The run's straggler summary: the first five of `rows`, each a
+    window's (window, wall s, rolling median s) or a farm worker's
+    ("frontier", worker, frontier window, median frontier), as the
+    coordinator adds them. The reference's line unpacks three values
+    from every row and so raises on a frontier row; a window row prints
+    as its does."""
+    def row(r):
+        if r[0] == "frontier":
+            return f"worker {r[1]} at window {r[2]} vs median {r[3]:g}"
+        return f"w{r[0]} {r[1] * 1e3:.0f}ms vs median {r[2] * 1e3:.0f}ms"
+
+    return (f"stragglers: {len(rows)} window(s) flagged (rate {rate:.2f}): "
+            + ", ".join(row(r) for r in rows[:5]))
+
+
 def main(argv=None) -> None:
     """Parse `argv` (default: the process's arguments) and run."""
     ap = argparse.ArgumentParser()
@@ -307,10 +323,7 @@ def main(argv=None) -> None:
                             zip(result.obs_names, pp["mean"][-1, p]))
             print(f"  {point}: {vals}")
     if tele.straggler_windows:
-        print(f"stragglers: {len(tele.straggler_windows)} window(s) "
-              f"flagged (rate {tele.straggler_rate:.2f}): " + ", ".join(
-                  f"w{w} {wall * 1e3:.0f}ms vs median {med * 1e3:.0f}ms"
-                  for w, wall, med in tele.straggler_windows[:5]))
+        print(straggler_line(tele.straggler_windows, tele.straggler_rate))
     sks = result.sketches()
     if sks:
         from repro_torch.stats import quantiles_from_hist

@@ -15,6 +15,17 @@ Each block takes the model's `Topology`: the FFN goes through
 one device), and decode through `decode_attention_seqsharded` whenever
 `topo.rules[KV_SEQ]` is set, as the reference routes them.
 `block_cache_logical` names the cache leaves' axes.
+
+On a mesh of more than one device the block runs on parts
+(`_apply_block_placed`): x is a `Placed` (B, S, d) in the layout
+`Topology.constrain(x, BATCH, SEQ, EMBED)` gives, the parameters are
+`Placed` leaves, the norms run on each part with their parameters
+gathered over `data`, attention and the MLP on each model shard's heads
+and columns, and the residual adds come after the row-parallel `psum`.
+The MoE FFN receives the normed input already split by BATCH and
+returns its output in the same layout. The decode cache is a tree of
+`Placed` leaves split by `block_cache_logical` (BATCH, KV_SEQ,
+KV_HEADS), written in place.
 """
 from __future__ import annotations
 
@@ -32,10 +43,20 @@ from repro_torch.configs.base import (
     ModelConfig,
 )
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.mlp import apply_mlp, mlp_defs
+from repro_torch.models.common import gathered_tree
+from repro_torch.models.mlp import apply_mlp, apply_mlp_placed, mlp_defs
 from repro_torch.models.moe import apply_moe, moe_defs
 from repro_torch.models.norms import apply_norm, norm_defs
-from repro_torch.sharding.rules import BATCH, KV_HEADS, KV_SEQ, Topology
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding.collectives import Placed, reshard
+from repro_torch.sharding.rules import (
+    BATCH,
+    EMBED,
+    KV_HEADS,
+    KV_SEQ,
+    SEQ,
+    Topology,
+)
 
 # ---------------------------------------------------------------------------
 # Layer grouping
@@ -133,6 +154,9 @@ def apply_block(params, x, cfg: ModelConfig, topo: Optional[Topology],
     mode: "full" (no cache IO), "prefill" (returns the built cache),
     "decode" (single token, writes its K/V into `cache` in place).
     """
+    if isinstance(x, Placed):
+        return _apply_block_placed(params, x, cfg, topo, spec, mode=mode,
+                                   cache=cache, pos=pos)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(params["norm1"], x, cfg.norm)
     new_cache: dict = {}
@@ -166,6 +190,59 @@ def apply_block(params, x, cfg: ModelConfig, topo: Optional[Topology],
     return x, new_cache, aux
 
 
+def _norm_placed(params, x: Placed, cfg: ModelConfig, topo) -> Placed:
+    local, _ = gathered_tree(params, topo)
+    return Placed(col.each(lambda p, xx: apply_norm(p, xx, cfg.norm), local,
+                           x), x.spec, x.mesh)
+
+
+def _add(a: Placed, b: Placed) -> Placed:
+    """a + b in a's layout."""
+    b = reshard(b, a.spec)
+    return Placed(col.each(torch.add, a, b), a.spec, a.mesh)
+
+
+def _apply_block_placed(params, x: Placed, cfg: ModelConfig, topo: Topology,
+                        spec: LayerSpec, *, mode: str, cache=None, pos=None):
+    """`apply_block` on a mesh (x and the parameters `Placed`)."""
+    aux = torch.zeros((), dtype=torch.float32, device=topo.device)
+    h = _norm_placed(params["norm1"], x, cfg, topo)
+    new_cache: dict = {}
+    if spec.mixer != MIXER_ATTN:
+        raise ValueError(spec.mixer)
+    if mode == "decode":
+        mix_out, kv = attn_mod.attn_decode_placed(params["mixer"], h, cfg,
+                                                  topo, cache, pos)
+        new_cache.update(kv)
+    else:
+        mix_out, kv = attn_mod.attn_full_placed(params["mixer"], h, cfg,
+                                                topo)
+        if mode == "prefill":
+            new_cache.update(kv)
+
+    def ffn(h_in):
+        nonlocal aux
+        if spec.ffn == FFN_MOE:
+            out, aux_l = apply_moe(params["ffn"], h_in, cfg, topo)
+            aux = aux + aux_l
+            return out
+        # the MLP runs on the whole sequence; its row-parallel output is
+        # reduce-scattered back where the residual is split on it
+        s_ax = h_in.spec[1]
+        out = apply_mlp_placed(params["ffn"], reshard(
+            h_in, (h_in.spec[0], None, None)), cfg, topo,
+            1 if s_ax is not None else None)
+        return out
+
+    if cfg.parallel_block and spec.ffn != FFN_NONE:
+        return _add(_add(x, mix_out), ffn(h)), new_cache, aux
+
+    x = _add(x, mix_out)
+    if spec.ffn != FFN_NONE:
+        x = _add(x, ffn(_norm_placed(params["norm2"], x, cfg, topo)))
+    return topo.constrain(x, BATCH, SEQ, EMBED), new_cache, aux
+
+
 # ---------------------------------------------------------------------------
 # Stacks (prefix + stacked pattern)
 # ---------------------------------------------------------------------------
@@ -191,20 +268,28 @@ def stack_defs(cfg: ModelConfig, specs: tuple[LayerSpec, ...]) -> dict:
 
 def pad_cache(cache, cache_len: int):
     """Pad attention K/V cache seq axes (axis = ndim-3) out to cache_len
-    so decode has ring-write headroom."""
+    so decode has ring-write headroom (a `Placed` leaf part by part: its
+    sequence axis is whole until the cache is placed)."""
+
+    def pad(v):
+        ax = v.ndim - 3
+        if v.shape[ax] >= cache_len:
+            return v
+        # F.pad lists (left, right) from the last axis
+        return F.pad(v, [0, 0] * (v.ndim - 1 - ax)
+                     + [0, cache_len - v.shape[ax]])
 
     def walk(node):
         if isinstance(node, dict):
             out = {}
             for k, v in node.items():
-                if k in ("k", "v"):
-                    ax = v.ndim - 3
-                    if v.shape[ax] < cache_len:
-                        # F.pad lists (left, right) from the last axis
-                        pad = [0, 0] * (v.ndim - 1 - ax) + [
-                            0, cache_len - v.shape[ax]]
-                        v = F.pad(v, pad)
-                    out[k] = v
+                if k in ("k", "v") and isinstance(v, Placed):
+                    if v.spec[v.ndim - 3] is not None:
+                        raise ValueError("pad_cache: the cache's sequence "
+                                         "axis is split")
+                    out[k] = v.map(pad)
+                elif k in ("k", "v"):
+                    out[k] = pad(v)
                 else:
                     out[k] = walk(v)
             return out
@@ -257,14 +342,14 @@ def apply_stack(params, x, cfg: ModelConfig, topo: Optional[Topology],
     if not groups.n_repeat:
         return x, new_cache, aux_total
 
-    unbound = {name: _map(lambda a: a.unbind(0), p)
+    unbound = {name: _map(_unbind, p)
                for name, p in params["stack"].items()}
     per_repeat = []
     for r in range(groups.n_repeat):
         ncs = {}
         for j, spec in enumerate(groups.pattern):
             p = _map(lambda a: a[r], unbound[f"l{j}"])
-            c = (_map(lambda a: a[r], cache["stack"][f"l{j}"])
+            c = (_map(lambda a: _take(a, r), cache["stack"][f"l{j}"])
                  if cache is not None else None)
             x, ncs[f"l{j}"], aux = apply_block(
                 p, x, cfg, topo, spec, mode=mode, positions=positions, cache=c,
@@ -275,7 +360,36 @@ def apply_stack(params, x, cfg: ModelConfig, topo: Optional[Topology],
         new_cache["stack"] = cache["stack"]
     else:
         new_cache["stack"] = {
-            name: {k: torch.stack([rep[name][k] for rep in per_repeat])
+            name: {k: _stack([rep[name][k] for rep in per_repeat])
                    for k in per_repeat[0][name]}
             for name in per_repeat[0]}
     return x, new_cache, aux_total
+
+
+def _unbind(a) -> tuple:
+    """A stacked leaf's repeats. A `Placed` leaf's parts are unbound
+    once each (views); where FSDP split its layers axis (small configs)
+    the axis is gathered first."""
+    if not isinstance(a, Placed):
+        return a.unbind(0)
+    if a.spec[0] is not None:
+        a = reshard(a, (None, *a.spec[1:]))
+    per_part: dict = {}
+    for t in a.parts:
+        per_part.setdefault(id(t), t.unbind(0))
+    return tuple(Placed([per_part[id(t)][r] for t in a.parts], a.spec[1:],
+                        a.mesh) for r in range(a.shape[0]))
+
+
+def _take(a, r: int):
+    """Repeat r of a stacked cache leaf (views, so writes land in it)."""
+    if isinstance(a, Placed):
+        return a.map(lambda t: t[r], a.spec[1:])
+    return a[r]
+
+
+def _stack(leaves: list):
+    if isinstance(leaves[0], Placed):
+        return Placed(col.each(lambda *ts: torch.stack(ts), *leaves),
+                      (None, *leaves[0].spec), leaves[0].mesh)
+    return torch.stack(leaves)

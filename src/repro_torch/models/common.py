@@ -4,6 +4,13 @@ Every module declares its parameters as a tree of `ParamDef`s (shape +
 logical axes + initializer), so the parameters, their byte count and
 their names all derive from the same tree.
 
+On a mesh of more than one device every leaf is a `Placed`: its parts by
+the leaf's `param_shardings` spec. `place_params` and `whole_params`
+carry a tree of whole leaves to parts and back (checkpoints, interop);
+`gathered` is a parameter with its FSDP axis gathered, right before its
+use; `row_parallel` is the product whose contraction is split over
+`model`, followed by its `psum`.
+
 The reference's products emit the input dtype with float32 accumulation,
 or float32 where they ask for it. `matmul` and `einsum` do the same:
 torch's products accumulate in float32 and emit the input dtype; a
@@ -20,6 +27,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding.collectives import Placed, reshard
 from repro_torch.sharding.rules import LAYERS
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -117,6 +126,74 @@ def param_shardings(defs: DefTree, topo) -> Any:
     return [param_shardings(v, topo) for v in defs]
 
 
+def place_params(tree, shardings) -> Any:
+    """A tree of whole leaves placed by a tree of `NamedSharding`s of
+    its structure: each leaf as the parts of its spec (views where a
+    part's device is the leaf's)."""
+    if isinstance(tree, dict):
+        return {k: place_params(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [place_params(v, sh) for v, sh in zip(tree, shardings)]
+    return Placed.place(tree, shardings.spec, shardings.mesh)
+
+
+def whole_params(tree, device=None) -> Any:
+    """A tree's `Placed` leaves joined into whole tensors (on `device`,
+    default each mesh's first device); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: whole_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [whole_params(v, device) for v in tree]
+    return tree.whole(device) if isinstance(tree, Placed) else tree
+
+
+def gathered(p: Placed, topo) -> Placed:
+    """A parameter with its FSDP axis gathered (`all_gather` over
+    `data`): the layout its layer computes in. GSPMD gathers an FSDP
+    parameter right before its use; so does each layer here, and the
+    gathered tensor is freed with the layer's locals."""
+    ax = topo.fsdp_axis
+    if ax is None or ax not in p.spec:
+        return p
+    return reshard(p, tuple(None if a == ax else a for a in p.spec))
+
+
+def gathered_tree(tree: dict, topo) -> tuple[list, dict]:
+    """A dict of parameters gathered (`gathered`): (one dict of parts a
+    mesh position, the dict of gathered `Placed`s). Positions whose
+    parts are all the same tensors get the same dict, so
+    `collectives.each` runs their body once."""
+    flat = {k: gathered(v, topo) for k, v in tree.items()}
+    out, seen = [], {}
+    for i in range(topo.n_devices):
+        key = tuple(id(v[i]) for v in flat.values())
+        if key not in seen:
+            seen[key] = {k: v[i] for k, v in flat.items()}
+        out.append(seen[key])
+    return out, flat
+
+
+def row_parallel(subs: str, x: list, w: Placed, topo, out_spec,
+                 scatter_dim: Optional[int] = None) -> Placed:
+    """`einsum_out(subs, x_i, w_i)` at every position, then one `psum`
+    over the mesh axis that splits w's first dimension (the contraction),
+    or one `reduce_scatter` along `scatter_dim` where the output stays
+    split there (sequence parallelism). Each shard's partial is rounded
+    to the input dtype before the sum, as the reference's `einsum_out`
+    partials are (GSPMD all-reduces bf16 partials): never summed in
+    float32 and rounded after."""
+    ys = col.each(lambda a, b: einsum_out(subs, a, b), x, w)
+    ax = w.spec[0]
+    spec = list(out_spec)
+    if ax is not None:
+        if scatter_dim is not None:
+            ys = col.reduce_scatter(ys, topo.mesh, ax, scatter_dim)
+            spec[scatter_dim] = ax
+        else:
+            ys = col.psum(ys, topo.mesh, ax)
+    return Placed(ys, tuple(spec), topo.mesh)
+
+
 def param_bytes(defs: DefTree, dtype_name: str) -> int:
     dt = DTYPES[dtype_name]
     total = 0
@@ -181,6 +258,12 @@ def matmul(x, w, dtype=None):
     if x.is_cuda and (w.ndim == 2 or (w.ndim == 3 and x.ndim == 3)):
         return _F32Product.apply(x, w)
     return x.to(out) @ w.to(out)
+
+
+def einsum_out(subs, *args):
+    """`einsum` at the input dtype: the products whose partials a `psum`
+    adds (the reference's `einsum_out`)."""
+    return einsum(subs, *args)
 
 
 def einsum(subs, *args, dtype=None):

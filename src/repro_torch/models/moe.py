@@ -27,8 +27,13 @@ Execution paths:
     `model`.
   Shared experts are split on their FFN dimension over `model` and
   `psum`'d. `aux` is `pmean`'d over ("model", *data axes) in EP and over
-  the data axes in the other two. The expert weights are split once per
-  topology (`Topology.split`); on repeated devices the slices are views.
+  the data axes in the other two. A `CausalLM` on a mesh hands
+  `apply_moe` its normed input as a `Placed` already split by BATCH and
+  its weights as `Placed` leaves by `param_shardings`: each weight is
+  resharded into its path's layout (gathered over what it does not
+  split on: the FSDP axis, the router's experts) and the output comes
+  back as a `Placed` in the input's layout. Whole tensors (a test's, an
+  oracle's) are split at the call, as views on repeated devices.
   Router aux loss is Switch-style `E · Σ_e f_e · p_e`.
 
 Bits. Top-k is a stable descending sort (`jax.lax.top_k`'s order: among
@@ -54,6 +59,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamDef, matmul
 from repro_torch.models.mlp import apply_mlp
 from repro_torch.sharding import collectives as col
+from repro_torch.sharding.collectives import Placed, reshard
 from repro_torch.sharding.rules import (
     BATCH,
     EMBED,
@@ -194,7 +200,8 @@ def moe_routed_local(params, x_flat, cfg: ModelConfig, *, capacity: int):
 def apply_moe(params, x, cfg: ModelConfig, topo: Topology | None = None):
     """x: (B, S, d) -> (y, aux_loss). On a topology of more than one
     device: the reference's choice of path (EP, EP-small or
-    TP-in-expert); y is joined on the topology's first device."""
+    TP-in-expert); y is a `Placed` in x's BATCH layout where x is one,
+    else joined on the topology's first device."""
     b, s, d = x.shape
 
     if topo is None or topo.n_devices == 1:
@@ -210,6 +217,11 @@ def apply_moe(params, x, cfg: ModelConfig, topo: Topology | None = None):
     ep = topo.tp_size
     batch_rule = topo.rules[BATCH]
     x_spec = (batch_rule, None, None)
+    if isinstance(x, Placed):
+        if x.spec[0] != batch_rule:
+            raise ValueError(f"apply_moe: the input's batch is split over "
+                             f"{x.spec[0]}, the rules say {batch_rule}")
+        x = reshard(x, x_spec)
     expert_rule = topo.rules[EXPERTS]
     ffn_rule = topo.rules[EXPERT_FFN]
     # local tokens per data shard
@@ -235,17 +247,23 @@ def apply_moe(params, x, cfg: ModelConfig, topo: Topology | None = None):
 
 
 def _split_params(params, specs: dict, topo: Topology) -> list[dict]:
-    """One parameter dict per mesh position, each leaf split by its spec
-    (`Topology.split`: once per topology)."""
+    """One parameter dict per mesh position, each leaf in its spec: a
+    `Placed` leaf resharded, a whole one split (views on its device)."""
     n = topo.n_devices
 
     def split(node, spec):
         if isinstance(node, dict):
             per_key = {k: split(node[k], spec[k]) for k in spec}
             return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
-        return topo.split(node, spec)
+        if isinstance(node, Placed):
+            return reshard(node, spec).parts
+        return col.shard(node, spec, topo.mesh)
 
     return split(params, specs)
+
+
+def _parts(x, x_spec, mesh) -> list:
+    return x.parts if isinstance(x, Placed) else col.shard(x, x_spec, mesh)
 
 
 def _param_specs(cfg: ModelConfig, w_e, w_d, shared_ax) -> dict:
@@ -266,12 +284,19 @@ def _shared_psum(params_i, x_flat, cfg, topo, ax) -> list:
     return col.psum(ys, topo.mesh, ax) if ax else ys
 
 
-def _finish(y, aux, x_parts, x_spec, topo: Topology):
-    """Join the shards' (T, d) outputs by x_spec on the topology's
-    first device; aux is replicated: shard 0's."""
-    y = [yi.to(xp.dtype).reshape(xp.shape) for yi, xp in zip(y, x_parts)]
-    return col.unshard(y, x_spec, topo.mesh, topo.device), aux[0].to(
-        topo.device)
+def _finish(y, aux, x, x_parts, x_spec, topo: Topology):
+    """The shards' (T, d) outputs in x's layout (a `Placed`), or joined
+    by x_spec on the topology's first device for a whole x; aux is
+    replicated: shard 0's."""
+    done: dict = {}
+    for yi, xp in zip(y, x_parts):
+        if (id(yi), id(xp)) not in done:
+            done[(id(yi), id(xp))] = yi.to(xp.dtype).reshape(xp.shape)
+    y = [done[(id(yi), id(xp))] for yi, xp in zip(y, x_parts)]
+    aux = aux[0].to(topo.device)
+    if isinstance(x, Placed):
+        return Placed(y, x_spec, topo.mesh), aux
+    return col.unshard(y, x_spec, topo.mesh, topo.device), aux
 
 
 def _apply_moe_tp(params, x, cfg: ModelConfig, topo: Topology, x_spec,
@@ -284,7 +309,7 @@ def _apply_moe_tp(params, x, cfg: ModelConfig, topo: Topology, x_spec,
     p_specs = _param_specs(cfg, (None, None, ffn_rule),
                            (None, ffn_rule, None), ffn_rule)
     params_i = _split_params(params, p_specs, topo)
-    x_parts = col.shard(x, x_spec, mesh)
+    x_parts = _parts(x, x_spec, mesh)
     x_flat = [xp.reshape(-1, d) for xp in x_parts]
 
     routed, out_bufs = [], []
@@ -306,7 +331,7 @@ def _apply_moe_tp(params, x, cfg: ModelConfig, topo: Topology, x_spec,
         y = [a + b for a, b in zip(y, ys)]
     if topo.data_axes:
         aux = col.pmean(aux, mesh, topo.data_axes)
-    return _finish(y, aux, x_parts, x_spec, topo)
+    return _finish(y, aux, x, x_parts, x_spec, topo)
 
 
 def _apply_moe_ep_small(params, x, cfg: ModelConfig, topo: Topology,
@@ -321,7 +346,7 @@ def _apply_moe_ep_small(params, x, cfg: ModelConfig, topo: Topology,
     w_e = ("model", None, None)
     params_i = _split_params(params, _param_specs(cfg, w_e, w_e, "model"),
                              topo)
-    x_parts = col.shard(x, x_spec, mesh)
+    x_parts = _parts(x, x_spec, mesh)
     y, aux = [], []
     for pos, p, xp in zip(col.positions(mesh), params_i, x_parts):
         x_flat = xp.reshape(-1, d)
@@ -350,7 +375,7 @@ def _apply_moe_ep_small(params, x, cfg: ModelConfig, topo: Topology,
     y = col.psum(y, mesh, "model")
     if topo.data_axes:
         aux = col.pmean(aux, mesh, topo.data_axes)
-    return _finish(y, aux, x_parts, x_spec, topo)
+    return _finish(y, aux, x, x_parts, x_spec, topo)
 
 
 def _apply_moe_ep(params, x, cfg: ModelConfig, topo: Topology, x_spec):
@@ -362,7 +387,7 @@ def _apply_moe_ep(params, x, cfg: ModelConfig, topo: Topology, x_spec):
     w_e = ("model", None, None)
     params_i = _split_params(params, _param_specs(cfg, w_e, w_e, "model"),
                              topo)
-    x_parts = col.shard(x, x_spec, mesh)
+    x_parts = _parts(x, x_spec, mesh)
     x_flat = [xp.reshape(-1, d) for xp in x_parts]
 
     routed, bufs = [], []
@@ -395,7 +420,7 @@ def _apply_moe_ep(params, x, cfg: ModelConfig, topo: Topology, x_spec):
         ys = _shared_psum(params_i, x_flat, cfg, topo, "model")
         y = [a + b for a, b in zip(y, ys)]
     aux = col.pmean(aux, mesh, ("model", *topo.data_axes))
-    return _finish(y, aux, x_parts, x_spec, topo)
+    return _finish(y, aux, x, x_parts, x_spec, topo)
 
 
 def moe_dense_oracle(params, x, cfg: ModelConfig):

@@ -16,13 +16,24 @@ collectives of `sharding/collectives.py` between them (the reference is
 single-controller too). `spec` returns a tuple of mesh axes (a name, a
 tuple of names, or None) per dimension: the `PartitionSpec` analogue.
 
-What a spec places: the MoE experts (`models/moe.py`), the
-sequence-sharded KV cache (`models/attention.py`), the data-parallel
-step's batch (`train/step.py`) and a restored checkpoint's leaves
-(`ckpt/store.py`). The dense layers run unsplit on the mesh's first
-device (`device`); placing them by their specs (tensor-parallel
-attention and MLP, FSDP), which GSPMD does in the reference, is ROADMAP
-queue 1 item 18e. `constrain` is therefore the identity.
+What a spec places. On a mesh of more than one device every parameter
+of a `CausalLM` is held as the parts `param_shardings` gives
+(`collectives.Placed`: views of one tensor on repeated devices, copies
+on distinct ones), and the dense layers run on those parts as GSPMD
+runs the reference's: tensor parallelism over `model` (column-parallel
+projections, row-parallel ones followed by a `psum`, a vocab-parallel
+embedding and head), FSDP over `data` (a parameter gathered right
+before its use, its gradient reduce-scattered back) and the batch over
+the data axes. `constrain` puts an activation into the layout its
+logical axes give (by splitting, gathering or leaving its parts as they
+are); a dimension its axis does not divide stays whole, as `_divides`
+replicates it in the rules. The MoE experts, the sequence-sharded KV
+cache, the data-parallel step's batch and a restored checkpoint's
+leaves are placed the same way. Parameters live as parts, so nothing
+splits a whole parameter at each call: the per-topology cache of split
+expert weights that stood here is gone, and a whole tensor handed to a
+multi-device function (a test's, or an oracle's) is split at the call,
+as views where its device is the part's.
 """
 from __future__ import annotations
 
@@ -35,7 +46,7 @@ import torch
 
 from repro_torch.configs.base import MeshSpec, ModelConfig, ShardingConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.sharding.collectives import shard
+from repro_torch.sharding.collectives import Placed, reshard
 
 # Logical axis vocabulary ----------------------------------------------------
 # params
@@ -122,7 +133,8 @@ class Topology:
     # ------------------------------------------------------------------
     @property
     def device(self) -> torch.device:
-        """The mesh's first device: where the dense layers run."""
+        """The mesh's first device: where whole values (a served model's
+        logits, a scalar loss) are joined."""
         return self.mesh.devices.reshape(-1)[0]
 
     @property
@@ -246,30 +258,24 @@ class Topology:
     def named(self, logical: Sequence[Optional[str]], **kw) -> NamedSharding:
         return NamedSharding(self.mesh, self.spec(logical, **kw))
 
+    def act_spec(self, logical: Sequence[Optional[str]],
+                 shape: Sequence[int]) -> tuple:
+        """An activation's spec: `spec(logical)` with each dimension its
+        axis does not divide left whole (a decode step's one position
+        over `model`, a batch smaller than the data axes)."""
+        return tuple(ax if ax is not None and self._divides(n, ax) else None
+                     for ax, n in zip(self.spec(logical), shape))
+
     def constrain(self, x, *logical: Optional[str]):
-        """A layout constraint by logical axes: the dense layers run
-        unsplit on `device` (item 18e), so x is returned as it is."""
-        return x
-
-    @cached_property
-    def _split_cache(self) -> dict:
-        return {}
-
-    def split(self, t: torch.Tensor, spec: tuple) -> list:
-        """`collectives.shard(t, spec, mesh)`, made once per (tensor,
-        spec) and kept while the tensor is not written: the expert
-        weights are split once per topology, not at every call. On
-        repeated devices the parts are views of `t`."""
-        key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype,
-               str(t.device), spec)
-        hit = self._split_cache.get(key)
-        if hit is not None and hit[1] == t._version:
-            return hit[2]
-        parts = shard(t, spec, self.mesh)
-        # holding the base keeps its storage (and so the key) unique
-        self._split_cache[key] = (t._base if t._base is not None else t,
-                                  t._version, parts)
-        return parts
+        """`with_sharding_constraint` by logical axes: x (a `Placed`, or
+        a whole tensor) in the layout `act_spec` gives; the identity on
+        a one-device mesh."""
+        if self.n_devices == 1:
+            return x
+        spec = self.act_spec(logical, x.shape)
+        if isinstance(x, Placed):
+            return reshard(x, spec)
+        return Placed.place(x, spec, self.mesh)
 
 
 def smoke_topology(model: ModelConfig, sharding: ShardingConfig | None = None,

@@ -9,6 +9,12 @@ reciprocal for a Python divisor on the card). `adamw_update` works leaf
 by leaf and in place: the state it is given is donated, as the
 reference's jitted step donates it, so one leaf's temporaries are alive
 at a time.
+
+Placed parameters (`fsdp_tp` on a mesh) are updated part by part: their
+gradients, `mu`, `nu` and `master` are `Placed` leaves of the same
+layout, each distinct part updated once in place (parts that are views
+of one leaf are disjoint slices of it), and the global norm counts each
+slice once, not its replicas on other devices.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
+from repro_torch.sharding.collectives import Placed, flat_parts
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -50,20 +57,35 @@ def init_opt_state(params, cfg: OptimizerConfig) -> AdamWState:
     dev = leaves[0].device
 
     def zeros(p):
+        if isinstance(p, Placed):
+            return p.map(zeros)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    def wide(p):
+        if isinstance(p, Placed):
+            return p.map(wide)
+        return p.detach().to(torch.float32, copy=True)
 
     needs_master = cfg.master_fp32 and any(
         p.dtype != torch.float32 for p in leaves)
-    master = (tree_map(lambda p: p.detach().to(torch.float32, copy=True),
-                       params) if needs_master else None)
+    master = tree_map(wide, params) if needs_master else None
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params),
                       master=master)
 
 
+def _sq(x) -> torch.Tensor:
+    if isinstance(x, Placed):  # each slice once, summed on the first device
+        out = None
+        for p in x.slices():
+            t = torch.sum(torch.square(p.to(torch.float32))).to(x.device)
+            out = t if out is None else out + t
+        return out
+    return torch.sum(torch.square(x.to(torch.float32)))
+
+
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in tree_leaves(tree)]
+    leaves = [_sq(x) for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -91,14 +113,18 @@ def adamw_update(grads, state: AdamWState, params, cfg: OptimizerConfig):
     bc1 = 1 - b1 ** step.to(torch.float32)
     bc2 = 1 - b2 ** step.to(torch.float32)
 
-    g_leaves = tree_leaves(grads)
-    mu_leaves = tree_leaves(state.mu)
-    nu_leaves = tree_leaves(state.nu)
-    p_leaves = tree_leaves(params)
-    m_leaves = (tree_leaves(state.master) if state.master is not None
+    g_leaves = flat_parts(grads)
+    mu_leaves = flat_parts(state.mu)
+    nu_leaves = flat_parts(state.nu)
+    p_leaves = flat_parts(params)
+    m_leaves = (flat_parts(state.master) if state.master is not None
                 else [None] * len(p_leaves))
+    on: dict = {}  # the step's scalars on each part's device
     for g, m, v, p, p32 in zip(g_leaves, mu_leaves, nu_leaves, p_leaves,
                                m_leaves):
+        if p.device not in on:
+            on[p.device] = [t.to(p.device) for t in (scale, lr, bc1, bc2)]
+        scale, lr, bc1, bc2 = on[p.device]
         g = g.to(torch.float32) * scale
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)

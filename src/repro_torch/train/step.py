@@ -31,6 +31,13 @@ makes it, stands for every shard's zeros at the first step; with
 compress=False the "error" entry is passed through untouched, as the
 reference returns it).
 
+On a mesh (`fsdp_tp` or `dp_tp`) the state's parameters, gradients and
+optimizer leaves are `Placed`: autograd differentiates the loss in each
+distinct slice of a leaf (a replica on another device is a copy made
+from it inside the graph, so its gradient adds into the slice's), the
+FSDP gather's backward returns each gradient reduce-scattered into its
+parameter's layout, and AdamW updates part by part.
+
 `abstract_train_state` (shapes with shardings for XLA's ahead-of-time
 lowering) has no PyTorch analogue and is not ported.
 """
@@ -42,6 +49,7 @@ import torch
 
 from repro_torch.configs.base import OptimizerConfig, ShardingConfig
 from repro_torch.sharding import collectives as col
+from repro_torch.sharding.collectives import Placed, flat_parts, unflat_parts
 from repro_torch.train.compression import error_feedback
 from repro_torch.train.optim import adamw_update, init_opt_state
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
@@ -67,15 +75,56 @@ def _split_microbatches(batch: dict, accum: int) -> list[dict]:
     return [{k: v[i] for k, v in parts.items()} for i in range(accum)]
 
 
+def _live(leaf, trainable: list):
+    """A leaf that requires grad: a tensor's detached copy, or a
+    `Placed` leaf's distinct slices (each its first holder's part),
+    with the parts on other devices moved from them inside the graph."""
+    if not isinstance(leaf, Placed):
+        t = leaf.detach().requires_grad_(True)
+        trainable.append(t)
+        return t
+    canon, moved, parts = {}, {}, []
+    for k, p in zip(leaf.keys(), leaf.parts):
+        if k not in canon:
+            canon[k] = p.detach().requires_grad_(True)
+            trainable.append(canon[k])
+        if (k, p.device) not in moved:
+            moved[(k, p.device)] = canon[k].to(p.device)
+        parts.append(moved[(k, p.device)])
+    return Placed(parts, leaf.spec, leaf.mesh)
+
+
+def _laid_out(leaf, grads):
+    """A leaf's gradient in its layout, from `grads` (an iterator over
+    the gradients of `_live`'s trainable tensors, in its order)."""
+    if not isinstance(leaf, Placed):
+        return next(grads)
+    per_key: dict = {}
+    for k in leaf.keys():
+        if k not in per_key:
+            per_key[k] = next(grads)
+    moved: dict = {}
+    parts = []
+    for k, p in zip(leaf.keys(), leaf.parts):
+        if (k, p.device) not in moved:
+            moved[(k, p.device)] = per_key[k].to(p.device)
+        parts.append(moved[(k, p.device)])
+    return Placed(parts, leaf.spec, leaf.mesh)
+
+
 def _grad_fn(model, params, mb):
     """(loss, metrics, gradient tree) of `model.loss` on `mb` at
     `params`."""
     leaves = tree_leaves(params)
-    live = [p.detach().requires_grad_(True) for p in leaves]
+    trainable: list = []
+    live = [_live(p, trainable) for p in leaves]
     loss, metrics = model.loss(mb, params=tree_unflatten_like(params, live))
-    grads = torch.autograd.grad(loss, live, materialize_grads=True)
+    grads = iter(torch.autograd.grad(loss, trainable,
+                                     materialize_grads=True))
+    del live
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return loss.detach(), metrics, tree_unflatten_like(params, list(grads))
+    return loss.detach(), metrics, tree_unflatten_like(
+        params, [_laid_out(p, grads) for p in leaves])
 
 
 def make_train_step(model, ocfg: OptimizerConfig,
@@ -98,13 +147,13 @@ def make_train_step(model, ocfg: OptimizerConfig,
                 if grads is None:
                     grads = [torch.zeros(p.shape, dtype=torch.float32,
                                          device=p.device)
-                             for p in tree_leaves(params)]
-                for a, gg in zip(grads, tree_leaves(g)):
-                    a.add_(gg.to(torch.float32) / n)
+                             for p in flat_parts(params)]
+                for a, gg in zip(grads, flat_parts(g)):
+                    a.add_(gg.to(torch.float32) / n.to(a.device))
                 del g
                 losses.append(l)
                 ms.append(m)
-            grads = tree_unflatten_like(params, grads)
+            grads = unflat_parts(params, grads)
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}

@@ -3,7 +3,8 @@ against the reference's (`python -m repro.launch.simulate`): the same
 arguments write the same CSV on a plain run, a per-point sweep and a
 two-worker farm, and a bad `--sweep` or `--workers` without
 `--recover-dir` end with the reference's one-line error. The port runs
-with `--device cpu` (its default is the CUDA device).
+with `--device cpu` (its default is the CUDA device). The straggler
+line takes a farm's frontier rows beside window rows.
 """
 import os
 import subprocess
@@ -81,3 +82,14 @@ def test_cli_errors_are_the_reference_one_liners(tmp_path, args, message):
     proc = _cli("repro.launch.simulate", [*PLAIN, *args], tmp_path)
     assert proc.returncode == 1
     assert proc.stderr.strip().splitlines()[-1] == message
+
+
+def test_straggler_line_takes_frontier_rows():
+    """A farm's flagged rows mix windows (window, wall s, median s) with
+    frontier stragglers ("frontier", worker, window, median window), as
+    `FarmCoordinator` merges them; the line prints both (the reference's
+    raises on the second kind), and a window row as the reference's."""
+    rows = [(3, 0.25, 0.1), ("frontier", 1, 4, 6.5)]
+    assert t_cli.straggler_line(rows, 0.5) == (
+        "stragglers: 2 window(s) flagged (rate 0.50): w3 250ms vs median "
+        "100ms, worker 1 at window 4 vs median 6.5")

@@ -1090,22 +1090,25 @@ def _card_mesh(shape, axes, cuda):
     ("olmoe-1b-7b", (1, 4), {}),
     ("deepseek-moe-16b", (2, 2), dict(expert_parallel=False)),
     ("llama3-8b", (1, 4), dict(seq_sharded_kv=True, kv_seq_axis="model")),
-    ("llama3-8b", (4, 1), dict(seq_sharded_kv=True, kv_seq_axis="data"))])
+    ("llama3-8b", (4, 1), dict(seq_sharded_kv=True, kv_seq_axis="data")),
+    ("starcoder2-7b", (2, 2), dict(strategy="fsdp_tp"))])
 def test_cuda_mesh_paths_match_cpu(cuda, name, shape, kw):
     """A CausalLM on a mesh of four card entries (EP, TP-in-expert, the
-    sequence-sharded decode) against the same model on a CPU mesh:
+    sequence-sharded decode, FSDP with tensor-parallel dense layers)
+    against the same model on a CPU mesh:
     prefill and one decode step within tests/test_torch_models.py's
-    2e-4 (float32 smoke configs, capacity factor 8), expert slices as
-    views of the card's weights."""
+    2e-4 (float32 smoke configs, capacity factor 8), each parameter's
+    parts views of one tensor on the card."""
     import dataclasses
 
     from repro_torch.configs.base import ShardingConfig
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models import build_model
     from repro_torch.sharding.rules import Topology
+    from repro_torch.tree import tree_leaves
 
     cfg = dataclasses.replace(get_smoke_config(name), capacity_factor=8.0)
-    scfg = ShardingConfig(strategy="dp_tp", **kw)
+    scfg = ShardingConfig(**{"strategy": "dp_tp", **kw})
     host = build_model(cfg, Topology(_card_mesh(shape, ("data", "model"),
                                                 "cpu"), cfg, scfg))
     host.init(torch.Generator().manual_seed(1))
@@ -1123,11 +1126,62 @@ def test_cuda_mesh_paths_match_cpu(cuda, name, shape, kw):
         outs.append((last, logits))
     for a, b in zip(outs[1], outs[0]):
         torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4)
-    if cfg.n_experts:
-        w = card.params()["blocks"]["stack"]["l0"]["ffn"]["w_up"]
-        parts = card.topo.split(w[0], ("model", None, None))
+    # every leaf is held as its parts, views of one tensor on the card
+    for w in tree_leaves(card.params()):
         assert all(p.untyped_storage().data_ptr()
-                   == w.untyped_storage().data_ptr() for p in parts)
+                   == w.parts[0].untyped_storage().data_ptr()
+                   for p in w.parts)
+
+
+@pytest.mark.cuda
+def test_cuda_fsdp_tp_step_matches_cpu(cuda):
+    """The fsdp_tp train step of llama3-8b's smoke config (float32) on a
+    (2, 2) mesh of card entries against the same step on a CPU mesh:
+    each parameter's gradient on the first microbatch, in its layout,
+    within 1e-4 of the leaf's largest CPU entry (the card and the CPU
+    sum in other orders; a wrong sum or a missing psum moves a leaf by
+    a share of its size), then two steps' losses and gradient norms."""
+    from repro_torch.configs.base import OptimizerConfig, ShardingConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import Topology
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.step import _grad_fn, make_train_step
+    from repro_torch.tree import tree_flatten_with_path
+
+    cfg = get_smoke_config("llama3-8b")
+    scfg = ShardingConfig(strategy="fsdp_tp", grad_accum=2)
+    ocfg = OptimizerConfig()
+    weights = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)).state_dict()
+    mb = synth_batch(cfg, 4, 32, 0)
+    out, grads = [], []
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, Topology(_card_mesh(
+            (2, 2), ("data", "model"), dev), cfg, scfg))
+        model.load_state_dict(weights)
+        grads.append(tree_flatten_with_path(
+            _grad_fn(model, model.params(), mb)[2]))
+        state = {"params": model.params(),
+                 "opt": init_opt_state(model.params(), ocfg)}
+        step = make_train_step(model, ocfg, scfg)
+        ms = []
+        for i in range(2):
+            state, m = step(state, synth_batch(cfg, 8, 32, i))
+            ms.append(m)
+        out.append(ms)
+    for (path, h), (_, c) in zip(*grads):
+        h, c = h.whole(), c.whole().cpu()
+        assert h.shape == c.shape, path
+        assert float((c - h).abs().max()) <= 1e-4 * float(h.abs().max()), \
+            path
+    m_h, m_c = out
+    for a, b in zip(m_c, m_h):
+        np.testing.assert_allclose(float(a["loss"]), float(b["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(a["grad_norm"]),
+                                   float(b["grad_norm"]), rtol=1e-4)
 
 
 @pytest.mark.cuda
