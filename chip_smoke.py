@@ -1469,9 +1469,9 @@ def phase_supersteps(device, main_recs, tau_sparse_recs, card) -> None:
                 + f"; {card}")
             for i, (_, _, _, _, bw) in enumerate(runs):
                 log(f"[supersteps]   run {i + 1} blocks (first window, "
-                    f"windows, dispatch ms, collect ms): "
-                    + ", ".join(f"({w0}, {n}, {d * 1e3:.3f}, "
-                                f"{c * 1e3:.3f})" for w0, n, d, c in bw))
+                    f"windows, dispatch ms): "
+                    + ", ".join(f"({w0}, {n}, {d * 1e3:.3f})"
+                                for w0, n, d in bw))
 
         # the sparse tau path in supersteps of 8 at depth "auto"
         sp = Experiment(model=MODELS[SPARSE_MODEL](),

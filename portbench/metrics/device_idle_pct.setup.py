@@ -1,0 +1,9 @@
+"""The share of the traced window with nothing on the card while the
+host was in the program's set-up (`repro_torch.setup` and its parts).
+The three `device_idle_pct.*` parts sum to `device_idle_pct`."""
+from portbench.harness.spans import device_readable, idle_parts_pct
+
+
+def read(run):
+    return idle_parts_pct(run.trace)["setup"] if device_readable(run) \
+        else None

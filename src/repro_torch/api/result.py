@@ -33,14 +33,12 @@ class Telemetry:
     predictive costs; under supersteps ONE per block (the wait on the
     block's ring). A steering decision point adds none (the reference
     counts two: its counter pull and its pool pull).
-    window_wall_times: per-window host wall to enqueue the window's
-    device work on the per-window paths (excluding device compute,
-    which the record pull then waits for); under supersteps 1/W of the
-    block's enqueue + ring-wait wall.
-    block_walls: (first_window, n_windows, dispatch_s, collect_s) rows,
-    one per window on the per-window paths and one per block under
-    supersteps; dispatch_s is the host wall to enqueue, collect_s the
-    blocking pull plus host-side emit.
+    block_walls: (first_window, n_windows, dispatch_s) rows, one per
+    window on the per-window paths and one per block under supersteps;
+    dispatch_s is the host wall to enqueue the device work (excluding
+    device compute, which the record pull then waits for). Where the
+    rest of a window's time goes, a profiler's trace shows by the
+    engine's spans (`core/trace.py`).
     steps_per_window: pool-total solver iterations that advanced a lane
     per window (exact SSA: events fired; tau-leaping: accepted leaps
     plus fired exact steps).
@@ -62,7 +60,6 @@ class Telemetry:
     """
 
     wall_time_s: float
-    window_wall_times: tuple
     peak_buffered_bytes: int
     dispatches: int
     host_syncs: int
@@ -219,7 +216,6 @@ class SimulationResult:
         eng = self._engine
         return Telemetry(
             wall_time_s=self._wall_time,
-            window_wall_times=tuple(eng.wall_times),
             peak_buffered_bytes=eng.peak_buffered_bytes,
             dispatches=eng.n_dispatches,
             host_syncs=eng.n_host_syncs,

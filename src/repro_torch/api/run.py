@@ -24,6 +24,7 @@ from repro_torch.api.spec import (
     Partitioning,
     Reduction,
 )
+from repro_torch.core import trace
 from repro_torch.core.engine import (
     SimConfig,
     SimulationEngine,
@@ -106,9 +107,10 @@ def build_engine(experiment: Experiment, device=None,
     if shard is not None:
         # the rows of the global table `init_lanes` builds for the whole
         # ensemble
-        keys = lane_keys(experiment.seed, ens.n_instances,
-                         device=engine.device)[lo:hi].clone()
-        engine._pool = engine._pool._replace(key=keys)
+        with trace.span(trace.SETUP_LANES):
+            keys = lane_keys(experiment.seed, ens.n_instances,
+                             device=engine.device)[lo:hi].clone()
+            engine._pool = engine._pool._replace(key=keys)
         if group_ids is not None:
             # this shard's place in the GLOBAL (V, G) stats layout: shards
             # are contiguous and blocks uniform, so the worker's blocks
@@ -177,23 +179,24 @@ def simulate(experiment: Experiment, *, device=None,
 
         return RunSupervisor(experiment, experiment.recovery,
                              device=device).run()
-    engine = build_engine(experiment, device=device)
-    if resume:
-        if not checkpoint_path:
-            raise ExperimentError("resume=True requires checkpoint_path")
-        path = (checkpoint_path if checkpoint_path.endswith(".npz")
-                else checkpoint_path + ".npz")
-        if not os.path.exists(path):
-            raise ExperimentError(
-                f"resume=True but no checkpoint at {path!r}")
-        try:
-            engine.restore(checkpoint_path)
-        except ValueError as e:
-            # e.g. a mid-block checkpoint under window_block > 1
-            raise ExperimentError(str(e)) from e
-    for sink in experiment.sinks:
-        engine.stream.attach(sink)
-        for rec in engine.stream.records():  # replay restored windows
-            sink(rec)
+    with trace.span(trace.SETUP):
+        engine = build_engine(experiment, device=device)
+        if resume:
+            if not checkpoint_path:
+                raise ExperimentError("resume=True requires checkpoint_path")
+            path = (checkpoint_path if checkpoint_path.endswith(".npz")
+                    else checkpoint_path + ".npz")
+            if not os.path.exists(path):
+                raise ExperimentError(
+                    f"resume=True but no checkpoint at {path!r}")
+            try:
+                engine.restore(checkpoint_path)
+            except ValueError as e:
+                # e.g. a mid-block checkpoint under window_block > 1
+                raise ExperimentError(str(e)) from e
+        for sink in experiment.sinks:
+            engine.stream.attach(sink)
+            for rec in engine.stream.records():  # replay restored windows
+                sink(rec)
     return SimulationResult(experiment, engine).resume(
         max_windows=max_windows, checkpoint_path=checkpoint_path)

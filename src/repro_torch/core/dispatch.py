@@ -58,7 +58,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import reduction
+from repro_torch.core import reduction, trace
 from repro_torch.core.device import to_device
 from repro_torch.core.gillespie import (
     LaneState,
@@ -304,15 +304,18 @@ class FusedDispatch:
         old = eng._pools
         new, truncs = [], []
         for k, body in enumerate(self._bodies):
-            pool, trunc = body.window(
-                old[k], eng._rates_shards[k], perms and perms[k], horizon,
-                h_dev and h_dev[body.device])
+            with trace.span(trace.WINDOW_KERNEL):
+                pool, trunc = body.window(
+                    old[k], eng._rates_shards[k], perms and perms[k],
+                    horizon, h_dev and h_dev[body.device])
             new.append(pool)
             truncs.append(trunc)
         eng._pools = new
         deltas = ([n.steps - o.steps for n, o in zip(new, old)]
                   if eng.scheduler.policy == "predictive" else None)
-        return self._products(new, self.extract_obs(new), deltas, truncs)
+        with trace.span(trace.WINDOW_FOLD):
+            return self._products(new, self.extract_obs(new), deltas,
+                                  truncs)
 
     def advance(self, horizon) -> WindowResult:
         """horizon: numpy float32 window end."""
@@ -357,21 +360,24 @@ class HostLoopDispatch(FusedDispatch):
             sl = LaneState(*(a[idx] for a in pool))
             r = rates[idx] if per_lane else rates
             eng.n_dispatches += 1
-            if self._kernel:
-                loop, tables = ((body.loop, body.tables) if not per_lane
-                                else body.bind(r))
-                sl, trunc = body.kernel_window(sl, loop, tables, horizon)
-                truncated = trunc if truncated is None else truncated | trunc
-            else:
-                sl = body.advance(sl, r, h_dev[body.device])
+            with trace.span(trace.WINDOW_KERNEL):
+                if self._kernel:
+                    loop, tables = ((body.loop, body.tables) if not per_lane
+                                    else body.bind(r))
+                    sl, trunc = body.kernel_window(sl, loop, tables, horizon)
+                    truncated = (trunc if truncated is None
+                                 else truncated | trunc)
+                else:
+                    sl = body.advance(sl, r, h_dev[body.device])
             # padding duplicates write identical data
             pool = LaneState(*(a.index_put((idx,), v)
                                for a, v in zip(pool, sl)))
         eng._pools = [pool]
         deltas = ([pool.steps - start.steps]
                   if eng.scheduler.policy == "predictive" else None)
-        return self._products([pool], self.extract_obs([pool]), deltas,
-                              [truncated])
+        with trace.span(trace.WINDOW_FOLD):
+            return self._products([pool], self.extract_obs([pool]), deltas,
+                                  [truncated])
 
     def advance(self, horizon) -> WindowResult:
         # one dispatch per group, counted in _window

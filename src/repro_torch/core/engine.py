@@ -61,6 +61,10 @@ Faults: the guards raise `runtime.fault.InvariantViolation`, a
 `RecoverableError` the supervisor (`runtime/supervisor.py`) catches;
 the straggler watchdog (`runtime/straggler.py`) observes every window
 and every collected block.
+
+Spans (`core/trace.py`): under a caller's `torch.profiler`, the set-up's
+parts and each window's kernel, fold, pull and emit are named on the
+trace; with no profiler running they cost a check each.
 """
 from __future__ import annotations
 
@@ -74,7 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt import store as ckpt_store
-from repro_torch.core import reduction
+from repro_torch.core import reduction, trace
 from repro_torch.core.cwc.compile import CompiledModel, compile_model
 from repro_torch.core.cwc.rules import CWCModel
 from repro_torch.core.device import resolve_devices, to_device
@@ -274,8 +278,9 @@ class SimulationEngine:
         # statistics, the rings and every global tensor
         self.devices = resolve_devices(device, cfg.n_shards)
         self.device = self.devices[0]
-        self.system, self.obs_names, self.obs_idx = resolve_observables(
-            model)
+        with trace.span(trace.SETUP_COMPILE):
+            self.system, self.obs_names, self.obs_idx = resolve_observables(
+                model)
         self.cfg = cfg
         self.grid = np.linspace(cfg.t_end / cfg.n_windows, cfg.t_end,
                                 cfg.n_windows)
@@ -288,14 +293,16 @@ class SimulationEngine:
         # the system's tables per device: (dense base, sparse exact or
         # None, tau or None); the lead device's are built here
         self._tables: dict = {}
-        self._tensors_base, self._sparse_tensors, self._tau_tables = (
-            self._tables_on(self.device))
-        # shared rates stay (R,) on the device (the kernel keeps them in
-        # shared memory); a sweep installs an (I, R) matrix
-        self.rates = np.broadcast_to(
-            self.system.rates, (cfg.n_instances, self.system.n_reactions))
         self._dispatch: Optional[FusedDispatch] = None
-        self._install_rates(self._tensors_base[3])
+        with trace.span(trace.SETUP_TABLES):
+            self._tensors_base, self._sparse_tensors, self._tau_tables = (
+                self._tables_on(self.device))
+            # shared rates stay (R,) on the device (the kernel keeps them
+            # in shared memory); a sweep installs an (I, R) matrix
+            self.rates = np.broadcast_to(
+                self.system.rates,
+                (cfg.n_instances, self.system.n_reactions))
+            self._install_rates(self._tensors_base[3])
         if rates is not None:
             self.set_rates(rates)
         self._window = 0
@@ -327,7 +334,8 @@ class SimulationEngine:
         self._record_trajectories = record_trajectories
         self._samples: list = []
         self._peak_buffered = 0
-        self.wall_times: list[float] = []
+        # (first window, windows, host wall s to enqueue) per window, or
+        # per block under supersteps
         self.block_walls: list[tuple] = []
         # telemetry: window dispatches and blocking device->host pulls
         self.n_dispatches = 0
@@ -390,10 +398,12 @@ class SimulationEngine:
         # Telemetry.straggler_windows
         self.watchdog = WindowWatchdog()
         self._perm_cache: Optional[list] = None
-        self._dispatch = (HostLoopDispatch if cfg.host_loop
-                          else FusedDispatch)(self)
-        self._pool = init_lanes(self.system, cfg.n_instances, cfg.seed,
-                                device=self.device)
+        with trace.span(trace.SETUP_DISPATCH):
+            self._dispatch = (HostLoopDispatch if cfg.host_loop
+                              else FusedDispatch)(self)
+        with trace.span(trace.SETUP_LANES):
+            self._pool = init_lanes(self.system, cfg.n_instances, cfg.seed,
+                                    device=self.device)
 
     # ----------------------------------------------------------- shards
     def _tables_on(self, device) -> tuple:
@@ -639,6 +649,7 @@ class SimulationEngine:
         """Schemas i/ii buffer raw samples; iii only on request."""
         return self.cfg.schema in ("i", "ii") or self._record_trajectories
 
+    @trace.spanned(trace.WINDOW)
     def run_window(self) -> StatsRecord:
         """Advance every instance to the next grid point and emit its
         record. Schemas share this loop; they differ in grouping policy
@@ -652,33 +663,41 @@ class SimulationEngine:
         t0 = time.perf_counter()
         res = self._dispatch.advance(horizon)
         if self.scheduler.policy == "predictive":
-            steps_delta = self._gathered(res.steps_delta).cpu().numpy()
-            self.n_host_syncs += 1
+            steps_delta = self._gathered(res.steps_delta)
+            with trace.span(trace.WINDOW_PULL):
+                steps_delta = steps_delta.cpu().numpy()
+                self.n_host_syncs += 1
             self.scheduler.record_costs(np.arange(cfg.n_instances),
                                         steps_delta)
-        self.wall_times.append(time.perf_counter() - t0)
-        self.watchdog.observe(w, self.wall_times[-1])
-        row = self._pack_window(res)
-        t_pull = time.perf_counter()
-        row = row.cpu().numpy()  # ONE combined blocking pull
-        self.n_host_syncs += 1
-        rec = self._emit_row(w, row)
-        obs_bytes = sum(o.numel() * o.element_size() for o in res.obs)
-        if self._buffering():
-            # the one place a sharded window's observables cross shards
-            self._samples.append(self._gathered(res.obs).cpu().numpy())
+        wall = time.perf_counter() - t0
+        self.watchdog.observe(w, wall)
+        with trace.span(trace.WINDOW_FOLD):
+            row = self._pack_window(res)
+        with trace.span(trace.WINDOW_PULL):
+            row = row.cpu().numpy()  # ONE combined blocking pull
             self.n_host_syncs += 1
-            self._peak_buffered = max(
-                self._peak_buffered, sum(s.nbytes for s in self._samples))
-        else:  # schema iii: on-line reduction, window dropped immediately
-            self._peak_buffered = max(self._peak_buffered, obs_bytes)
-        if res.grouped is not None:
-            leaves = self._grouped_stats(res).cpu().numpy()
-            self._grouped.append(reduction.Stats(*leaves))
-            self.n_host_syncs += 1
-        self.stream.emit(rec)
-        self.block_walls.append(
-            (w, 1, self.wall_times[-1], time.perf_counter() - t_pull))
+        with trace.span(trace.WINDOW_EMIT):
+            rec = self._emit_row(w, row)
+            obs_bytes = sum(o.numel() * o.element_size() for o in res.obs)
+            if self._buffering():
+                # the one place a sharded window's observables cross shards
+                obs = self._gathered(res.obs)
+                with trace.span(trace.WINDOW_PULL):
+                    self._samples.append(obs.cpu().numpy())
+                    self.n_host_syncs += 1
+                self._peak_buffered = max(
+                    self._peak_buffered,
+                    sum(s.nbytes for s in self._samples))
+            else:  # schema iii: on-line reduction, window dropped at once
+                self._peak_buffered = max(self._peak_buffered, obs_bytes)
+            if res.grouped is not None:
+                leaves = self._grouped_stats(res)
+                with trace.span(trace.WINDOW_PULL):
+                    leaves = leaves.cpu().numpy()
+                    self.n_host_syncs += 1
+                self._grouped.append(reduction.Stats(*leaves))
+            self.stream.emit(rec)
+        self.block_walls.append((w, 1, wall))
         self._window += 1
         self._dispatched = self._window
         return rec
@@ -807,6 +826,7 @@ class SimulationEngine:
         done.record(torch.cuda.current_stream(self.device))
         return host, done
 
+    @trace.spanned(trace.BLOCK_DISPATCH)
     def _dispatch_block(self, limit: int) -> None:
         """Queue the next W windows as ONE dispatch, fold each window's
         statistics on the device with the per-window path's ops, pack
@@ -823,7 +843,8 @@ class SimulationEngine:
             snap_ready = self._record_events()
         t0 = time.perf_counter()
         res = self._dispatch.advance_block(horizons)
-        ring = {"rows": torch.stack([self._pack_window(r) for r in res])}
+        with trace.span(trace.WINDOW_FOLD):
+            ring = {"rows": torch.stack([self._pack_window(r) for r in res])}
         if res[0].grouped is not None:
             ring["grouped"] = torch.stack(
                 [self._grouped_stats(r) for r in res])
@@ -860,6 +881,7 @@ class SimulationEngine:
             sum(e.ring_bytes for e in self._pending)
             + sum(s.nbytes for s in self._samples))
 
+    @trace.spanned(trace.BLOCK_COLLECT)
     def _collect_block(self) -> None:
         """Wait for the OLDEST in-flight block's ring (its one host
         sync), then emit its windows' records exactly as the per-window
@@ -875,9 +897,10 @@ class SimulationEngine:
             # at the mid-block frontier saves a boundary-aligned file
             self._aligned_snap = (w0, ent.snapshot)
         t0 = time.perf_counter()
-        if ent.done is not None:
-            ent.done.synchronize()
-        self.n_host_syncs += 1
+        with trace.span(trace.WINDOW_PULL):
+            if ent.done is not None:
+                ent.done.synchronize()
+            self.n_host_syncs += 1
         pull_s = time.perf_counter() - t0
         wall = ent.dispatch_wall + pull_s
         # the block's one wall, as one sample at per-window scale
@@ -889,33 +912,33 @@ class SimulationEngine:
                 f"superstep ring holds {rows.shape[0]} rows for a "
                 f"{n_win}-window block at window {w0}")
         for w in range(n_win):
-            self.wall_times.append(wall / n_win)
-            rec = self._emit_row(w0 + w, rows[w])
-            if "obs" in pull:
-                self._samples.append(pull["obs"][w].numpy().copy())
-                self._peak_buffered = max(
-                    self._peak_buffered,
-                    sum(s.nbytes for s in self._samples))
-            else:
-                self._peak_buffered = max(self._peak_buffered,
-                                          ent.obs_row_bytes)
-            if "grouped" in pull:
-                self._grouped.append(reduction.Stats(
-                    *pull["grouped"][w].numpy().copy()))
-            if "steps_delta" in pull:
-                # per-window EMA updates in window order: the cost state
-                # at every block boundary matches the per-window path's
-                self.scheduler.record_costs(
-                    np.arange(cfg.n_instances),
-                    pull["steps_delta"][w].numpy())
-            self.stream.emit(rec)
+            with trace.span(trace.WINDOW_EMIT):
+                rec = self._emit_row(w0 + w, rows[w])
+                if "obs" in pull:
+                    self._samples.append(pull["obs"][w].numpy().copy())
+                    self._peak_buffered = max(
+                        self._peak_buffered,
+                        sum(s.nbytes for s in self._samples))
+                else:
+                    self._peak_buffered = max(self._peak_buffered,
+                                              ent.obs_row_bytes)
+                if "grouped" in pull:
+                    self._grouped.append(reduction.Stats(
+                        *pull["grouped"][w].numpy().copy()))
+                if "steps_delta" in pull:
+                    # per-window EMA updates in window order: the cost
+                    # state at every block boundary matches the
+                    # per-window path's
+                    self.scheduler.record_costs(
+                        np.arange(cfg.n_instances),
+                        pull["steps_delta"][w].numpy())
+                self.stream.emit(rec)
             self._window += 1
         if "lane_steps" in pull:
             self._steer_counters = (pull["lane_steps"].numpy(),
                                     pull["lane_leaps"].numpy())
         host_s = time.perf_counter() - t0 - pull_s
-        self.block_walls.append((w0, n_win, ent.dispatch_wall,
-                                 pull_s + host_s))
+        self.block_walls.append((w0, n_win, ent.dispatch_wall))
         if self._depth is None:
             # pipeline_depth="auto": the first collect ran at depth 1
             # (cold pipeline), so pull_s approximates one block's
@@ -1061,6 +1084,7 @@ class SimulationEngine:
         return self.stream.records()
 
     # ------------------------------------------------------------ fault
+    @trace.spanned(trace.CHECKPOINT)
     def checkpoint(self, path: str) -> None:
         """One-file snapshot in the reference's format: pool +
         scheduler + rates + emitted records (+ any buffered samples and
@@ -1183,6 +1207,7 @@ class SimulationEngine:
         self.ckpt_pulls.append((time.perf_counter() - t0, running))
         return {f: h.numpy() for f, h in host.items()}
 
+    @trace.spanned(trace.RESTORE)
     def restore(self, path: str) -> None:
         """Load a checkpoint written by either package. Refuses a file
         cut mid-block for this engine's window_block before touching any

@@ -695,13 +695,6 @@ def _merge_steering(metas: list, replicas: int,
     }
 
 
-def _pad_last(seq: list, n: int) -> list:
-    """The last n entries, left-padded with zeros: a restarted worker
-    keeps only its post-restore telemetry, so a series can be short."""
-    tail = list(seq)[-n:]
-    return [0.0] * (n - len(tail)) + tail
-
-
 class _FarmEngineView:
     """A merged, finished engine stand-in: what the port's
     SimulationResult reads (records, per-point stats, trajectories,
@@ -728,9 +721,6 @@ class _FarmEngineView:
         self._steering = steering
         tels = [m["telemetry"] for m in metas]
         w = len(grid)
-        self.wall_times = [
-            max(col) for col in zip(*(
-                _pad_last(t["window_wall_times"], w) for t in tels))]
         self.peak_buffered_bytes = max(
             t["peak_buffered_bytes"] for t in tels)
         self.n_dispatches = sum(t["dispatches"] for t in tels)

@@ -193,7 +193,10 @@ def _result_bundle(result, sup: WorkerSupervisor, started: dict) -> dict:
         **started, "t_done": time.time(),
         "telemetry": {
             "wall_time_s": tele.wall_time_s,
-            "window_wall_times": list(tele.window_wall_times),
+            # the bundle format both packages' coordinators merge: the
+            # reference's reads per-window walls, which the port does
+            # not keep (a profiler's trace of the engine's spans has them)
+            "window_wall_times": [],
             "peak_buffered_bytes": int(tele.peak_buffered_bytes),
             "dispatches": int(tele.dispatches),
             "host_syncs": int(tele.host_syncs),
