@@ -9,13 +9,16 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. build   — compile the kernel library from every source under
              `src/repro_torch/kernels/csrc` (one `nvcc -shared --threads
-             0` call over all of them, `kernels/build.py`); print the
-             seconds, ptxas's report and the card's name and power limit.
+             0` call over all of them, `kernels/build.py`) and the dense
+             SSA window generated for lv8 (`kernels/netgen.py`); print
+             the seconds, ptxas's reports and the card's name and power
+             limit.
 2. kernels — hold each kernel bitwise against its plain torch twin on the
              card, printing the count of differing elements:
-             the dense SSA window on lv8 (65,536 lanes, per-lane sweep
-             rates), ecoli, transport, a budget cut and a system with
-             reactant coefficients 3 and 4; the sparse SSA window on
+             the dense SSA window, generated and table-driven, on lv8
+             (65,536 lanes, per-lane sweep rates), ecoli, transport, a
+             budget cut and a system with reactant coefficients 3 and 4;
+             the sparse SSA window on
              ring80 (shared rates) and lattice8x8 (per-lane rates), both
              with the carry on chip, ring256 (R = 1,792: the carry in
              HBM; more lanes than its one-wave grid holds, so threads
@@ -71,7 +74,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              and the window times against the exact path's. Then times
              one full-width kernel launch against its plain twin on the
              same window, with the bound (and, for the sparse exact
-             kernel, its route).
+             kernel, its route); on 3, the generated kernel against the
+             table kernel too, timed in turns, each with its operand
+             bound once outside the timing.
 4. supersteps — the main path of 3 with window_block=4,
              pipeline_depth=2 and a checkpoint after every block:
              launches = windows, dispatches = host syncs = blocks, no
@@ -658,6 +663,21 @@ def phase_build() -> None:
                 w in line for w in ("registers", "spill", "error",
                                     "stack frame", "entry function")):
             log(f"[build] {line.strip()}")
+    # the dense exact kernel generated for the main path's network
+    from repro_torch.core.gillespie import system_tensors
+    from repro_torch.kernels import netgen
+
+    system = system_of(MAIN_MODEL)
+    src = netgen.window_source(netgen.network(*system_tensors(system)[:3]))
+    t0 = time.perf_counter()
+    build.load_network(src)
+    lib = build.network_library_path(src)
+    log(f"[build] the ssa_window kernel generated for {MAIN_MODEL} (S="
+        f"{system.n_species}, R={system.n_reactions}) built in "
+        f"{time.perf_counter() - t0:.2f} s: {lib.name}")
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if any(w in line for w in ("registers", "spill", "stack frame")):
+            log(f"[build] {MAIN_MODEL} generated: {line.strip()}")
 
 
 def card_line() -> str:
@@ -694,6 +714,7 @@ def phase_kernels(device) -> dict:
         sparse_window_route,
         ssa_window_call,
         ssa_window_plain,
+        ssa_window_tables,
         tau_window_call,
         tau_window_plain,
     )
@@ -726,9 +747,12 @@ def phase_kernels(device) -> dict:
         args = window_inputs(system_of(name), CHECK_LANES, CHECK_SEED,
                              per_lane, device)
         k = ssa_window_call(*args, horizon, n_steps=n_steps)
+        t = ssa_window_tables(*args, horizon, n_steps=n_steps)
         p = ssa_window_plain(*args, horizon, n_steps=n_steps)
-        check("ssa_window", f"{name} B={CHECK_LANES} rates="
-              f"{'(B,R)' if per_lane else '(R,)'}", k, p, horizon, n_steps)
+        label = (f"{name} B={CHECK_LANES} rates="
+                 f"{'(B,R)' if per_lane else '(R,)'}")
+        check("ssa_window", f"{label} generated", k, p, horizon, n_steps)
+        check("ssa_window", f"{label} table kernel", t, p, horizon, n_steps)
 
     sparse_cases = [  # (model, rates, horizon, n_steps, lanes)
         ("ring80", "(R,)", 0.25, budget, CHECK_LANES),
@@ -1030,9 +1054,11 @@ def phase_main(device) -> dict:
     from repro_torch.core.cwc.models import MODELS
     from repro_torch.core.reactions import sparse_tables
     from repro_torch.kernels.ssa_step import (
+        bind_network,
         dense_dep_mask,
         ssa_window_call,
         ssa_window_plain,
+        ssa_window_tables,
     )
 
     exp = Experiment(model=MODELS[MAIN_MODEL](),
@@ -1051,26 +1077,44 @@ def phase_main(device) -> dict:
             pool.ctr_hi, idx, coef, delta, eng._rates_dev)
     horizon = float(np.float32(eng.grid[1]))
     n_steps = exp.kernel_chunk_steps * exp.kernel_max_chunks
+    # each kernel's bound operand, bound once as FusedDispatch binds it
+    net = bind_network(idx, coef, delta)
+    dep_mask = dense_dep_mask(idx, coef, delta)
+    generated = lambda: ssa_window_call(*args, horizon, n_steps=n_steps,
+                                        net=net)
     k_ms, p_ms, out, err = time_against_twin(
-        "main", lambda: ssa_window_call(*args, horizon, n_steps=n_steps),
+        "main", generated,
         lambda: ssa_window_plain(*args, horizon, n_steps=n_steps))
+    # the table kernel on the same window, timed in turns with the
+    # generated one (tables, generated, tables)
+    tables = lambda: ssa_window_tables(*args, horizon, n_steps=n_steps,
+                                       dep_mask=dep_mask)
+    n_diff, _ = bitwise_diff(tables(), out)
+    if n_diff:
+        raise AssertionError(f"main: the table kernel and the generated "
+                             f"kernel disagree in {n_diff} elements")
+    t_ms = cuda_ms(tables, reps=5)
+    k_ms = (k_ms + cuda_ms(generated, reps=5)) / 2
+    t_ms = (t_ms + cuda_ms(tables, reps=5)) / 2
     active = int(((out[4].long() - pool.ctr.long()) & 0xFFFFFFFF).sum())
     fired = int(out[3].sum())
     ops = ops_per_step(eng.system, sparse_tables(eng.system))
     b, s = pool.x.shape
     n_bytes = pool_bytes(b, s) + nbytes(idx, coef, delta, eng._rates_dev,
-                                        dense_dep_mask(idx, coef, delta))
+                                        dep_mask)
     bound, by, detail = bound_of(
         n_bytes, active * ops["step"] + fired * ops["fired"]
         + b * ops["seed"], active * ops["i_step"])
-    log(f"[main] one window at full width: kernel {k_ms:.3f} ms, plain "
+    log(f"[main] one window at full width: generated kernel {k_ms:.3f} "
+        f"ms, table kernel {t_ms:.3f} ms (0 differing elements), plain "
         f"twin {p_ms:.1f} ms, 0 differing elements; {active} active lane "
         f"steps, {fired} events; bound {bound:.4f} ms ({detail}); the "
         f"same window took {win0_ms:.3f} ms end to end, kernel share "
         f"{k_ms / win0_ms:.4f}")
-    return dict(launches=nums["launches"], ms=k_ms, plain_ms=p_ms,
-                bound_ms=bound, bound_by=by, err=err, steps=nums["steps"],
-                win_ms=nums["win_ms"], records=nums["records"],
+    return dict(launches=nums["launches"], ms=k_ms, tables_ms=t_ms,
+                plain_ms=p_ms, bound_ms=bound, bound_by=by, err=err,
+                steps=nums["steps"], win_ms=nums["win_ms"],
+                records=nums["records"],
                 final_x=nums["final_x"])
 
 
@@ -1864,11 +1908,11 @@ def shard_kernel_split(exp, device, card) -> None:
     import torch
 
     from repro_torch.api import build_engine
-    from repro_torch.kernels.ssa_step import dense_dep_mask, ssa_window_call
+    from repro_torch.kernels.ssa_step import bind_network, ssa_window_call
 
     eng = build_engine(exp, device=device)
     idx, coef, delta, rates = eng._tensors_base
-    mask = dense_dep_mask(idx, coef, delta)
+    net = bind_network(idx, coef, delta)
     n_steps = exp.kernel_chunk_steps * exp.kernel_max_chunks
     whole_ms, quarter_ms = [], []
     for w in range(len(eng.grid)):
@@ -1881,7 +1925,7 @@ def shard_kernel_split(exp, device, card) -> None:
                 pool.x[lo:hi], pool.t[lo:hi],
                 pool.dead[lo:hi].to(torch.int32), pool.key[lo:hi],
                 pool.ctr[lo:hi], pool.ctr_hi[lo:hi], idx, coef, delta,
-                rates, horizon, n_steps=n_steps, dep_mask=mask)
+                rates, horizon, n_steps=n_steps, net=net)
 
         def whole():
             return call(0, pool.x.shape[0])
@@ -4749,25 +4793,27 @@ def main() -> int:
     seq_decode = phase_mesh(device, card, dense.pop("final_x"), train_ms)
     phase_dense_mesh(device, card, llm, seq_decode)
     entries = [
-        ("ssa_window", "ssa_window.cu", "src/repro/kernels/ssa_step.py:64",
-         dense),
-        ("sparse_window", "sparse_window.cu",
+        ("ssa_window", "src/repro_torch/kernels/netgen.py",
+         "src/repro/kernels/ssa_step.py:64", dense),
+        ("sparse_window", "src/repro_torch/kernels/csrc/sparse_window.cu",
          "src/repro/kernels/ssa_step.py:291", sparse),
-        ("propensity", "propensity.cu", "src/repro/kernels/propensity.py:72",
-         match),
-        ("tau_window", "tau_window.cu", "src/repro/kernels/ssa_step.py:178",
-         tau_dense),
-        ("sparse_tau_window", "sparse_tau_window.cu",
+        ("propensity", "src/repro_torch/kernels/csrc/propensity.cu",
+         "src/repro/kernels/propensity.py:72", match),
+        ("tau_window", "src/repro_torch/kernels/csrc/tau_window.cu",
+         "src/repro/kernels/ssa_step.py:178", tau_dense),
+        ("sparse_tau_window",
+         "src/repro_torch/kernels/csrc/sparse_tau_window.cu",
          "src/repro/kernels/ssa_step.py:423", tau_sparse),
     ]
     report = {"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{src}",
+        "source": src,
         "replaces": replaces,
         "launches": nums["launches"] + shard_launches.get(name, 0),
         "max_abs_err": max(worst[name], nums["err"]),
         "ms": nums["ms"],
+        "tables_ms": nums.get("tables_ms"),
         "plain_ms": nums["plain_ms"],
         "bound_ms": nums["bound_ms"],
         "bound_by": nums["bound_by"],

@@ -67,7 +67,7 @@ from repro_torch.core.gillespie import (
     ssa_step,
 )
 from repro_torch.core.tau_leap import make_tau_step
-from repro_torch.kernels.ssa_step import dense_dep_mask
+from repro_torch.kernels.ssa_step import bind_network, dense_dep_mask
 from repro_torch.kernels.ops import (
     bind_sparse_window,
     sparse_tau_window_chunk_loop,
@@ -156,6 +156,7 @@ class _ShardBody:
         self.device = device
         cfg = engine.cfg
         self._kernel = cfg.use_kernel
+        self._bound = None  # the dense kernel's, at the first bind
         base, sp, tau = engine._tables_on(device)
         self.extract_obs = _obs_extractor(engine.obs_idx, device)
         if not self._kernel:
@@ -183,22 +184,31 @@ class _ShardBody:
         this body's device."""
         cfg = self.eng.cfg
         base, sp, tau = self.eng._tables_on(self.device)
-        base = base[:3]
-        # the dense kernels' dependency masks; the CPU twins read none
-        dense_mask = (dense_dep_mask(*base)
-                      if rates.is_cuda and not cfg.sparse else None)
         if tau is not None:
-            loop = (
-                partial(sparse_tau_window_chunk_loop, rates=rates,
-                        eps=cfg.tau_eps, fallback=cfg.tau_fallback)
-                if cfg.sparse else
-                partial(tau_window_chunk_loop, rates=rates, eps=cfg.tau_eps,
-                        fallback=cfg.tau_fallback, dep_mask=dense_mask))
-            return loop, tau
+            if cfg.sparse:
+                return partial(sparse_tau_window_chunk_loop, rates=rates,
+                               eps=cfg.tau_eps, fallback=cfg.tau_fallback), tau
+            return partial(tau_window_chunk_loop, rates=rates,
+                           eps=cfg.tau_eps, fallback=cfg.tau_fallback,
+                           **self._dense_bound(rates)), tau
         if sp is None:
-            return (partial(window_chunk_loop, dep_mask=dense_mask),
-                    (*base, rates))
+            return (partial(window_chunk_loop, **self._dense_bound(rates)),
+                    (*base[:3], rates))
         return sparse_window_chunk_loop, bind_sparse_window(sp, rates)
+
+    def _dense_bound(self, rates) -> dict:
+        """The dense kernel's bound operand on the card, derived at the
+        first bind (the tables never change; the CPU twins read none):
+        `net`, the exact kernel generated for the network, or the tau
+        kernel's `dep_mask`."""
+        if not rates.is_cuda:
+            return {}
+        if self._bound is None:
+            base, _, tau = self.eng._tables_on(self.device)
+            self._bound = (
+                {"net": bind_network(*base[:3])} if tau is None
+                else {"dep_mask": dense_dep_mask(*base[:3])})
+        return self._bound
 
     def kernel_window(self, pool, loop, tables, horizon):
         """One window of `pool` through a bound kernel loop: (new pool,

@@ -68,21 +68,21 @@ class FusedWindowOut(NamedTuple):
 def window_chunk_loop(pool: LaneState, tensors, horizon,
                       chunk_steps: int = DEFAULT_CHUNK_STEPS,
                       max_chunks: int = DEFAULT_MAX_CHUNKS, *,
-                      dep_mask=None) -> FusedWindowOut:
+                      net=None) -> FusedWindowOut:
     """Advance every lane of `pool` to `horizon` through one
     `ssa_window_call` with the whole window's event budget.
 
     tensors: (idx, coef, delta, rates) as `gillespie.system_tensors`
-    gives them. horizon: a float (rounded to float32). dep_mask: the
-    kernel's `ssa_step.dense_dep_mask(idx, coef, delta)`, bound once per
-    run by the caller (derived per launch when None).
+    gives them. horizon: a float (rounded to float32). net: the kernel
+    `ssa_step.bind_network(idx, coef, delta)`, bound once per run by the
+    caller (bound per launch when None).
     """
     idx, coef, delta, rates = tensors
     h = np.float32(horizon)
     outs = ssa_window_call(
         pool.x, pool.t, pool.dead.to(torch.int32), pool.key, pool.ctr,
         pool.ctr_hi, idx, coef, delta, rates, h,
-        n_steps=chunk_steps * max_chunks, dep_mask=dep_mask)
+        n_steps=chunk_steps * max_chunks, net=net)
     return _exact_window_out(pool, outs, h, chunk_steps, max_chunks)
 
 

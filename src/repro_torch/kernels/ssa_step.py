@@ -4,10 +4,14 @@ twins.
 `ssa_window_call` runs up to `n_steps` dense exact SSA events per lane
 toward `horizon` — the port of the Pallas kernel
 `repro/kernels/ssa_step.py::ssa_window_call` (`_window_kernel`). For
-CUDA tensors it launches the hand-written kernel
-`kernels/csrc/ssa_window.cu` or raises; for CPU tensors it runs
-`ssa_window_plain`, which loops the port's `gillespie.ssa_step` — the
-port of the reference's oracle `repro/kernels/ref.py::ssa_window_ref`.
+CUDA tensors it launches `ssa_window_generated`, the hand-written
+kernel `kernels/netgen.py` writes for the network (or raises); for CPU
+tensors it runs `ssa_window_plain`, which loops the port's
+`gillespie.ssa_step` — the port of the reference's oracle
+`repro/kernels/ref.py::ssa_window_ref`. `ssa_window_tables`
+(`kernels/csrc/ssa_window.cu`, which reads the network's tables from
+memory) gives the same bits; the card tests and `chip_smoke.py` hold
+the generated kernel against it.
 
 `sparse_window_call` is the same for the sparse exact step — the port
 of `sparse_window_call` (`_sparse_window_kernel`): the CUDA kernel
@@ -35,13 +39,14 @@ count (a tau iteration consumes a varying number of counter blocks).
 
 Kernel and twin give the same bits. Each wrapper's `.launches` counts
 its kernel launches (CPU calls do not count), so a run can show that
-its main path went through the kernel. All the kernels come from one
-library built by `kernels/build.py`.
+its main path went through the kernel. All the kernels but the
+generated ones come from one library built by `kernels/build.py`.
 """
 from __future__ import annotations
 
 import ctypes
 from functools import partial
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -156,51 +161,107 @@ def dense_dep_mask(idx, coef, delta) -> torch.Tensor:
     return torch.from_numpy(bits.view(np.int64)).to(delta.device)
 
 
-def ssa_window_call(x, t, dead, key, ctr, ctr_hi, idx, coef, delta, rates,
-                    horizon, *, n_steps: int, dep_mask=None):
-    """Run up to n_steps fused SSA events per lane toward `horizon`.
-
-    x: (B, S) float32; t: (B,) float32; dead: (B,) int32; key: (B, 2)
-    int32 bits; ctr / ctr_hi: (B,) int32 bits; idx / coef: (R, 4)
-    int32 reactant tables; delta: (R, S) float32; rates: (R,) shared or
-    (B, R) per lane, float32; horizon: a float (rounded to float32);
-    dep_mask: `dense_dep_mask(idx, coef, delta)`, derived here when None
-    (the twin does not read it).
-    Returns (x, t, dead, steps_taken, ctr, ctr_hi) as new tensors.
-    """
-    if x.device.type == "cpu":
-        return ssa_window_plain(x, t, dead, key, ctr, ctr_hi, idx, coef,
-                                delta, rates, horizon, n_steps=n_steps)
+def _check_dense(fn, x, t, dead, key, ctr, ctr_hi, idx, coef, delta, rates,
+                 n_steps):
+    """Raise ValueError unless the operands are what the dense exact
+    kernels read; returns (B, S, R, rates per lane)."""
     if x.device.type != "cuda":
-        raise ValueError(f"ssa_window_call: unsupported device {x.device}")
+        raise ValueError(f"{fn}: unsupported device {x.device}")
     b, s = x.shape
     r = delta.shape[0]
     if not (1 <= s <= MAX_S and 1 <= r <= MAX_R):
         raise ValueError(
-            f"ssa_window_call: the dense CUDA kernel takes 1 <= S <= "
+            f"{fn}: the dense CUDA kernel takes 1 <= S <= "
             f"{MAX_S} species and 1 <= R <= {MAX_R} reactions, got S={s}, "
             f"R={r}; run larger systems with sparse=True")
     if not 0 <= n_steps < 2 ** 31:
-        raise ValueError(f"ssa_window_call: n_steps={n_steps} out of range")
-    dev = x.device
-    check = partial(check_operand, "ssa_window_call", device=dev)
+        raise ValueError(f"{fn}: n_steps={n_steps} out of range")
+    check = partial(check_operand, fn, device=x.device)
     _check_pool(check, x, t, dead, key, ctr, ctr_hi)
     check("idx", idx, torch.int32, (r, MAX_REACTANTS))
     check("coef", coef, torch.int32, (r, MAX_REACTANTS))
     check("delta", delta, torch.float32, (r, s))
     per_lane = rates.ndim == 2
     check("rates", rates, torch.float32, (b, r) if per_lane else (r,))
+    return b, s, r, per_lane
+
+
+class NetworkKernel(NamedTuple):
+    """A generated window kernel bound to one network's structure
+    (`bind_network`): its S and R and its C launcher."""
+
+    n_species: int
+    n_reactions: int
+    launch: Any
+
+
+_NET_ARGTYPES = ([_P] * 7 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                             ctypes.c_int] + [_P] * 7 + [_P])
+
+
+def bind_network(idx, coef, delta) -> NetworkKernel:
+    """The generated kernel of the network idx / coef (R, 4), delta
+    (R, S): its source from `netgen`, its library built at most once
+    (`build.load_network`). Bind it with the tables, not per window: the
+    first bind of a structure in a process may run nvcc."""
+    from repro_torch.kernels import netgen
+    from repro_torch.kernels.build import load_network
+
+    net = netgen.network(idx, coef, delta)
+    fn = load_network(netgen.window_source(net)).ssa_window_net_launch
+    fn.argtypes = _NET_ARGTYPES
+    fn.restype = ctypes.c_int
+    return NetworkKernel(net.n_species, net.n_reactions, fn)
+
+
+def ssa_window_generated(x, t, dead, key, ctr, ctr_hi, idx, coef, delta,
+                         rates, horizon, *, n_steps: int, net=None):
+    """`ssa_window_call` through the kernel generated for the network
+    (CUDA tensors only): net, `bind_network(idx, coef, delta)`, bound
+    here when None. The kernel reads the tables from its code, not from
+    idx / coef / delta."""
+    b, s, r, per_lane = _check_dense("ssa_window_generated", x, t, dead, key,
+                                     ctr, ctr_hi, idx, coef, delta, rates,
+                                     n_steps)
+    if net is None:
+        net = bind_network(idx, coef, delta)
+    if (net.n_species, net.n_reactions) != (s, r):
+        raise ValueError(f"ssa_window_generated: the bound kernel is for "
+                         f"S={net.n_species}, R={net.n_reactions}, the "
+                         f"operands have S={s}, R={r}")
+    outs = _pool_outputs(x, t, dead, ctr, ctr_hi)
+    ticket = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    err = launch(net.launch, x.device,
+                 *(a.data_ptr() for a in (x, t, dead, key, ctr, ctr_hi,
+                                          rates)),
+                 int(per_lane), float(np.float32(horizon)), int(n_steps), b,
+                 ticket.data_ptr(), *(o.data_ptr() for o in outs))
+    if err != 0:
+        raise RuntimeError(f"generated ssa_window kernel launch failed: "
+                           f"CUDA error {err}")
+    return outs
+
+
+def ssa_window_tables(x, t, dead, key, ctr, ctr_hi, idx, coef, delta, rates,
+                      horizon, *, n_steps: int, dep_mask=None):
+    """`ssa_window_call` through `csrc/ssa_window.cu`, which reads the
+    network's tables from memory (CUDA tensors only). dep_mask:
+    `dense_dep_mask(idx, coef, delta)`, derived here when None."""
+    b, s, r, per_lane = _check_dense("ssa_window_tables", x, t, dead, key,
+                                     ctr, ctr_hi, idx, coef, delta, rates,
+                                     n_steps)
     if dep_mask is None:
         dep_mask = dense_dep_mask(idx, coef, delta)
-    check("dep_mask", dep_mask, torch.int64, (r,))
+    check_operand("ssa_window_tables", "dep_mask", dep_mask, torch.int64,
+                  (r,), x.device)
     from repro_torch.kernels.build import load
 
     fn = load().ssa_window_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     outs = _pool_outputs(x, t, dead, ctr, ctr_hi)
-    ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
-    err = launch(fn, dev,
+    ticket = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    err = launch(fn, x.device,
                  *(a.data_ptr() for a in (x, t, dead, key, ctr, ctr_hi, idx,
                                           coef, delta, rates, dep_mask)),
                  int(per_lane), float(np.float32(horizon)), int(n_steps),
@@ -208,6 +269,35 @@ def ssa_window_call(x, t, dead, key, ctr, ctr_hi, idx, coef, delta, rates,
     if err != 0:
         raise RuntimeError(f"ssa_window kernel launch failed: CUDA error "
                            f"{err}")
+    return outs
+
+
+def ssa_window_call(x, t, dead, key, ctr, ctr_hi, idx, coef, delta, rates,
+                    horizon, *, n_steps: int, net=None):
+    """Run up to n_steps fused SSA events per lane toward `horizon`.
+
+    x: (B, S) float32; t: (B,) float32; dead: (B,) int32; key: (B, 2)
+    int32 bits; ctr / ctr_hi: (B,) int32 bits; idx / coef: (R, 4)
+    int32 reactant tables; delta: (R, S) float32; rates: (R,) shared or
+    (B, R) per lane, float32; horizon: a float (rounded to float32);
+    net: `bind_network(idx, coef, delta)`, bound here when None (the
+    twin does not read it).
+    Returns (x, t, dead, steps_taken, ctr, ctr_hi) as new tensors.
+
+    Every shape the dense kernels take runs the generated kernel: its
+    lane holds S populations and R rates and running sums in registers,
+    and on an H100 the largest measured, lotka_volterra(63) (S + R =
+    127), took 254 registers with no spill and ran a window in 28.2 ms
+    against `ssa_window_tables`' 181.9 (PERF.md §6).
+    """
+    if x.device.type == "cpu":
+        return ssa_window_plain(x, t, dead, key, ctr, ctr_hi, idx, coef,
+                                delta, rates, horizon, n_steps=n_steps)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssa_window_call: unsupported device {x.device}")
+    outs = ssa_window_generated(x, t, dead, key, ctr, ctr_hi, idx, coef,
+                                delta, rates, horizon, n_steps=n_steps,
+                                net=net)
     ssa_window_call.launches += 1
     return outs
 
